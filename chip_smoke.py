@@ -10,8 +10,10 @@ Run from the root of a checkout. In order:
 2. build: every CUDA kernel of the serving path, from ``stif_tpu_torch/csrc``,
    one ``nvcc`` per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the decoder's three nets with their real field splits (max|d| <= 1e-4),
-   then timed at the main path's shapes (LR 96x160, 8 times, x4);
+   the decoder's three nets with their real field splits (max|d| <= 1e-4):
+   contiguous fields, then the decoder's real layouts (column slices of a
+   198-wide tensor, fields broadcast over the time axis, ragged row
+   counts), and the kernel's sine against a float64 sine; then timed at the main path's shapes (LR 96x160, 8 times, x4);
 4. main path: the deployed full-width model (``rgb_skip`` bicubic) with the
    trained weights ``weights/trained_best_G.pth`` through
    ``InferencePipeline.render_window`` on a seeded 96x160 LR pair at 8 times:
@@ -21,7 +23,8 @@ Run from the root of a checkout. In order:
 5. the ``kernels`` JSON line, then the result line.
 
 Any failed check raises and the script exits non-zero; without a CUDA
-device it exits 2 and prints no result.
+device it exits 2 and prints no result. ``python3 chip_smoke.py --kernels``
+stops after phase 3 and prints no result line (for work on a kernel).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ LR_HW = (96, 160)
 N_TIMES = 8
 SCALE = 4
 KERNEL_BAR = 1e-4   # kernel vs plain, one net
+SINE_BAR = 5e-7     # the kernel's sine vs a float64 sine (sinf: 2 ulp)
 WINDOW_BAR = 1e-3   # whole window, kernel vs plain SIREN / GPU vs CPU
 # the decoder's three nets: field splits and layer widths (input first)
 NETS = {
@@ -104,11 +108,73 @@ def check(name, xs, ws, bs) -> float:
     got = siren_apply_fused(xs, ws, bs)
     torch.cuda.synchronize()
     err = (got - siren_apply_fused_plain(xs, ws, bs)).abs().max().item()
-    log(f"  {name} Q={xs[0].shape[0]}: max|kernel - plain| = {err:.3e}")
+    log(f"  {name} Q={got.numel() // got.shape[-1]}: "
+        f"max|kernel - plain| = {err:.3e}")
     if not err <= KERNEL_BAR:
         raise AssertionError(f"{name}: kernel disagrees with plain "
                              f"({err} > {KERNEL_BAR})")
     return err
+
+
+def decoder_fields(name, nt, Q, device):
+    """One net's fields laid out as the decoder hands them over, for nt
+    query times of Q rows each: ``expand`` views over the time axis (row
+    period Q), column slices of 198-wide tensors (row stride 198 floats, so
+    rows are 8-byte aligned), and contiguous tensors."""
+    import torch
+
+    def r(*shape):
+        return torch.rand(*shape, device=device) * 2 - 1
+
+    def tile_t(v):
+        return v.expand(nt, *v.shape)
+
+    pe = r(nt, Q, 1)
+    if name == "feat_imnet":
+        return [tile_t(r(Q, 200)), pe]
+    if name == "flow_imnet":
+        q_b = r(Q, 198)
+        return [r(nt, Q, 64), tile_t(q_b[..., :192]), tile_t(q_b[..., 192:]),
+                pe]
+    c1, c2 = r(nt, Q, 198), r(nt, Q, 198)
+    return [r(nt, Q, 64), r(nt, Q, 64), c1[..., :192], c2[..., :192],
+            c1[..., 192:], c2[..., 192:], pe]
+
+
+def layout_checks(name, ws, bs, device) -> float:
+    """The kernel against plain at the decoder's field layouts, with ragged
+    row counts around the kernel's tile; returns the largest max|d|."""
+    from stif_tpu_torch.ops.siren_fused import launch_plan
+
+    tile = launch_plan(NETS[name][0], NETS[name][1]).tile_rows
+    worst = 0.0
+    for nt in (1, 3):  # 3: fields broadcast over time, row period < rows
+        for Q in (1, tile - 1, tile, tile + 1, 65537):
+            xs = decoder_fields(name, nt, Q, device)
+            worst = max(worst, check(f"{name} layouts nt={nt}", xs, ws, bs))
+    return worst
+
+
+def sine_check(device) -> None:
+    """The kernel's own sine against a float64 sine of the same fp32
+    argument, through a 1 -> 4 -> 4 net with an identity last layer: small
+    arguments, arguments up to the end of its fast range (1e5), and beyond
+    it (1e8), where it hands over to ``sinf``."""
+    import torch
+    from stif_tpu_torch.ops import siren_apply_fused
+
+    w0 = torch.full((1, 4), 1.0 / 30.0, device=device)
+    ws, bs = [w0, torch.eye(4, device=device)], [torch.zeros(4, device=device)] * 2
+    for scale in (1e2, 1e5, 1e8):
+        x = (torch.rand(1 << 20, 1, device=device) * 2 - 1) * scale
+        got = siren_apply_fused([x], ws, bs)
+        torch.cuda.synchronize()
+        arg = 30.0 * (x * w0)  # the kernel's argument, rounded as it rounds
+        err = (got.double() - torch.sin(arg.double())).abs().max().item()
+        log(f"  sine, |argument| <= {scale:.0e}: max|kernel - float64 sin| "
+            f"= {err:.3e}")
+        if not err <= SINE_BAR:
+            raise AssertionError(f"kernel sine off by {err} > {SINE_BAR}")
 
 
 def kernel_phase(device, peaks):
@@ -117,18 +183,31 @@ def kernel_phase(device, peaks):
     bound_by), times summed over the three nets of one window."""
     import torch
     from stif_tpu_torch.ops import siren_apply_fused, siren_apply_fused_plain
+    from stif_tpu_torch.ops.siren_fused import blocks_per_sm, launch_plan
 
     rng = np.random.default_rng(0)
+    torch.manual_seed(0)
     rows = N_TIMES * LR_HW[0] * SCALE * LR_HW[1] * SCALE
+    sines = rows * sum(sum(widths[1:-1]) for _, widths in NETS.values())
+    log(f"  per window the three nets also take {sines} precise sinf "
+        f"({sines // rows} per row); the bound below counts matrix FLOPs "
+        "only")
+    sine_check(device)
     worst = 0.0
     ms = plain_ms = ops_ms = bytes_ms = 0.0
     for name, (splits, widths) in NETS.items():
         ws, bs = siren_net(rng, widths, device)
+        plan = launch_plan(splits, widths)
+        log(f"  {name} plan: {plan.tile_rows} rows x {plan.threads} threads, "
+            f"tile widths {plan.pitch}, K-chunks {plan.kc}, "
+            f"{len(plan.chunks)} first-layer chunks, {plan.smem_bytes} B "
+            f"shared, {blocks_per_sm(plan)} blocks per SM")
         for q in (65536, 65537):
             xs = [torch.tensor(rng.uniform(-1, 1, (q, c)),
                                dtype=torch.float32, device=device)
                   for c in splits]
             worst = max(worst, check(name, xs, ws, bs))
+        worst = max(worst, layout_checks(name, ws, bs, device))
         xs = [torch.rand(rows, c, device=device) * 2 - 1 for c in splits]
         worst = max(worst, check(name, xs, ws, bs))
         k_ms = cuda_ms(lambda: siren_apply_fused(xs, ws, bs), 5)
@@ -311,6 +390,10 @@ def main() -> int:
     log("[3] kernels vs plain, then timed at the main path's shapes")
     err, ms, plain_ms, bound_ms, bound_by = kernel_phase(device, peaks)
     torch.cuda.synchronize()
+    if "--kernels" in sys.argv[1:]:
+        log(f"    kernels: max|d| {err:.3e}, {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms [{card}]")
+        return 0
 
     log("[4] main path: InferencePipeline.render_window, trained weights")
     launches = main_path(card)

@@ -8,6 +8,12 @@ tensor it launches the hand-written Hopper kernel ``csrc/siren_fused.cu``
 memory) or raises; on a CPU tensor it computes the plain version,
 ``siren_apply_fused_plain``. Nothing falls back from the kernel.
 
+The launch geometry is worked out here, by ``launch_plan``: rows per tile,
+how each layer's weights are cut into K-chunks for the kernel's
+shared-memory ring, which columns of which field make up each chunk of the
+first layer's streamed input, and the bytes of shared memory. The C entry
+checks the plan again and refuses one it cannot run.
+
 Fields may be views: any field whose leading dims are broadcast (stride 0,
 e.g. ``v.expand(nt, *v.shape)``) ahead of row-major rows with unit column
 stride is read in place through a row period, without a copy.
@@ -17,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 from typing import Sequence, Tuple
 
 import torch
@@ -26,6 +33,15 @@ from stif_tpu_torch.ops import cuda_build
 _MAX_FIELDS = 8
 _MAX_LAYERS = 8
 _MAX_WIDTH = 256  # widest layer output the kernel's thread mapping takes
+# the kernel's geometry (csrc/siren_fused.cu)
+_TILE_ROWS = 64         # query rows per block
+_THREADS = 256
+_LD = _TILE_ROWS + 4    # floats per feature in a shared tile
+_STAGE_FLOATS = 4096    # one stage of the two-stage weight ring
+_MAX_CHUNKS = 64        # first-layer chunks
+_MAX_KC0 = 64           # first-layer chunk: 8 columns for each of 8 warps
+_NARROW = 4             # widest last layer computed as a reduction over k
+MAX_SMEM_BYTES = 232448  # dynamic shared memory one block may use on sm_90
 
 
 def _as_fields(x):
@@ -46,6 +62,90 @@ def siren_apply_fused_plain(x, weights: Sequence[torch.Tensor],
         if i < n - 1:
             h = torch.sin(omega0 * h)
     return h
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """Launch geometry of the fused kernel for one net.
+
+    ``pitch[l]`` is the width of layer l's register tile (64 or 256), or 0
+    for a narrow last layer computed as a reduction over k; ``kc[l]`` the
+    rows of its weight matrix per ring stage (0 with pitch 0).
+    ``chunks[i]`` lists, in order, the ``(field, lo, hi)`` column ranges
+    that make up columns ``[i * kc[0], (i + 1) * kc[0])`` of the
+    concatenated input."""
+
+    tile_rows: int
+    threads: int
+    pitch: Tuple[int, ...]
+    kc: Tuple[int, ...]
+    chunks: Tuple[Tuple[Tuple[int, int, int], ...], ...]
+    smem_bytes: int
+
+    def flat(self):
+        """The plan as the C entry reads it (see ``siren_fused_forward``)."""
+        pieces = [(i, f, lo, hi) for i, chunk in enumerate(self.chunks)
+                  for f, lo, hi in chunk]
+        out = [self.tile_rows, self.threads, self.smem_bytes,
+               len(self.chunks), len(pieces)]
+        for pitch, kc in zip(self.pitch, self.kc):
+            out += [pitch, kc]
+        for piece in pieces:
+            out += piece
+        return out
+
+
+def launch_plan(splits: Sequence[int], dims: Sequence[int]) -> LaunchPlan:
+    """The kernel's launch plan for fields of widths ``splits`` and layer
+    widths ``dims`` (input width first). Raises ``ValueError`` for a net
+    the kernel does not take."""
+    splits, dims = list(splits), list(dims)
+    if not 1 <= len(splits) <= _MAX_FIELDS or min(splits) < 1:
+        raise ValueError(f"siren_apply_fused: 1..{_MAX_FIELDS} fields of "
+                         f"width >= 1, got {splits}")
+    if not 2 <= len(dims) <= _MAX_LAYERS + 1 or sum(splits) != dims[0]:
+        raise ValueError(f"siren_apply_fused: 1..{_MAX_LAYERS} layers after "
+                         f"an input of width {sum(splits)}, got {dims}")
+    n_layers = len(dims) - 1
+    pitch, kc = [], []
+    for l, n in enumerate(dims[1:]):
+        if not 1 <= n <= _MAX_WIDTH:
+            raise ValueError(f"siren_apply_fused: layer width {n} outside "
+                             f"1..{_MAX_WIDTH}")
+        if 0 < l == n_layers - 1 and n <= _NARROW:
+            pitch.append(0)
+            kc.append(0)
+        else:
+            pitch.append(64 if n <= 64 else 256)
+            kc.append(min(_STAGE_FLOATS // pitch[-1], _MAX_KC0))
+    kc0 = kc[0]
+    if dims[0] > _MAX_CHUNKS * kc0:
+        raise ValueError(f"siren_apply_fused: input width {dims[0]} > "
+                         f"{_MAX_CHUNKS * kc0}")
+    # cut the concatenated row into chunks of kc0 columns, each a run of
+    # (field, lo, hi) pieces
+    chunks, cur, room = [], [], kc0
+    for f, width in enumerate(splits):
+        lo = 0
+        while lo < width:
+            hi = min(width, lo + room)
+            cur.append((f, lo, hi))
+            room -= hi - lo
+            lo = hi
+            if room == 0:
+                chunks.append(tuple(cur))
+                cur, room = [], kc0
+    if cur:
+        chunks.append(tuple(cur))
+    # one buffer holds the first layer's input ring and source-row table,
+    # then the widest hidden activation
+    buf = 2 * kc0 * _LD + 2 * _MAX_FIELDS * _TILE_ROWS
+    buf = max([buf] + [n * _LD for n in dims[1:-1]])
+    smem = 4 * (2 * _STAGE_FLOATS + buf) + 16  # and two mbarriers
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"siren_apply_fused: {smem} bytes of shared memory")
+    return LaunchPlan(_TILE_ROWS, _THREADS, tuple(pitch), tuple(kc),
+                      tuple(chunks), smem)
 
 
 def _field_layout(v: torch.Tensor, q: int) -> Tuple[int, int, int]:
@@ -78,10 +178,22 @@ def _library():
         fn.argtypes = [ctypes.c_int, ctypes.POINTER(vp),
                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                        ctypes.POINTER(vp), ctypes.POINTER(vp),
-                       ctypes.POINTER(ctypes.c_int), vp, ctypes.c_longlong,
-                       ctypes.c_float, vp]
+                       ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_int), ctypes.c_int, vp,
+                       ctypes.c_longlong, ctypes.c_float, vp]
         fn.restype = ctypes.c_int
     return fn
+
+
+def blocks_per_sm(plan: LaunchPlan) -> int:
+    """Blocks of the kernel one SM holds under ``plan`` (the CUDA occupancy
+    calculator's answer; builds the kernel if needed)."""
+    fn = cuda_build.load("siren_fused").siren_fused_blocks_per_sm
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    n = fn(plan.smem_bytes)
+    if n < 0:
+        raise RuntimeError(f"siren_fused occupancy query: CUDA error {-n}")
+    return n
 
 
 def siren_apply_fused(x, weights: Sequence[torch.Tensor],
@@ -120,10 +232,8 @@ def siren_apply_fused(x, weights: Sequence[torch.Tensor],
                 and w.data_ptr() % 16 == 0):
             raise ValueError("siren_apply_fused: weights and biases must be "
                              "contiguous, weights 16-byte aligned")
-        if w.shape[1] > _MAX_WIDTH:
-            raise ValueError(f"siren_apply_fused: layer width {w.shape[1]} "
-                             f"> {_MAX_WIDTH}")
         dims.append(w.shape[1])
+    plan = launch_plan([v.shape[-1] for v in xs], dims)
 
     q = math.prod(lead)
     out = torch.empty((q, dims[-1]), device=dev, dtype=torch.float32)
@@ -138,10 +248,12 @@ def siren_apply_fused(x, weights: Sequence[torch.Tensor],
     w_ptrs = (vp * len(weights))(*[w.data_ptr() for w in weights])
     b_ptrs = (vp * len(biases))(*[b.data_ptr() for b in biases])
     cdims = (ctypes.c_int * len(dims))(*dims)
+    flat = plan.flat()
+    cplan = (ctypes.c_int * len(flat))(*flat)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(len(xs), field_ptrs, meta, len(weights), w_ptrs, b_ptrs,
-                 cdims, out.data_ptr(), q, omega0, stream)
+                 cdims, cplan, len(flat), out.data_ptr(), q, omega0, stream)
     if err != 0:
         raise RuntimeError(f"siren_fused kernel launch failed: CUDA error {err}")
     siren_apply_fused.launches += 1

@@ -51,17 +51,23 @@ def test_gen_feat(params):
     np.testing.assert_allclose(got, want, atol=2e-5)
 
 
-@pytest.mark.parametrize("skip", ["off", "bicubic"])
+@pytest.mark.parametrize("skip", ["off", "bicubic", "per_sample"])
 def test_forward(params, skip):
+    """Full forward; ``per_sample``: a batch of two clips, each with its own
+    query times (B, nt), through the bicubic skip."""
     kw = ({} if skip == "off"
           else dict(rgb_skip=True, rgb_skip_bicubic=True))
     jm, pm = _pair(params, **kw)
-    x = _clip(2)
-    times = np.asarray([0.0, 0.25, 1.0], np.float32)
+    if skip == "per_sample":
+        x = np.concatenate([_clip(2), _clip(5)])
+        times = np.asarray([[0.0, 0.25, 1.0], [0.6, 0.1, 0.85]], np.float32)
+    else:
+        x = _clip(2)
+        times = np.asarray([0.0, 0.25, 1.0], np.float32)
     want = np.asarray(jax.jit(jm.apply)(params, x, times))
     with torch.inference_mode():
         got = pm(t(x), t(times)).numpy()
-    assert got.shape == want.shape == (3, 1, 4 * H, 4 * W, 3)
+    assert got.shape == want.shape == (3, len(x), 4 * H, 4 * W, 3)
     np.testing.assert_allclose(got, want, atol=5e-5)
 
 

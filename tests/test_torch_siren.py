@@ -4,6 +4,10 @@ The plain ``siren_apply_fused`` (what the port's wrapper runs on a CPU
 tensor) is held against the JAX Pallas kernel in interpret mode at the
 decoder's real field splits, at atol 2e-5 (the bar of
 ``tests/test_siren_pallas.py``); the ``Siren`` module against the flax one.
+The CUDA kernel's launch plan (``launch_plan``: tile, K-chunks, the first
+layer's chunk -> (field, column range) map, shared memory) is pure Python
+and is held here: its ragged edges, and that summing the first layer chunk
+by chunk in the plan's order stays within 1e-6 of the plain version.
 """
 
 import numpy as np
@@ -19,7 +23,11 @@ from stif_tpu.ops.siren_pallas import siren_params_from_flax
 
 from stif_tpu_torch.nn import Siren
 from stif_tpu_torch.ops import siren_apply_fused, siren_apply_fused_plain
-from stif_tpu_torch.ops.siren_fused import _field_layout
+from stif_tpu_torch.ops.siren_fused import (
+    MAX_SMEM_BYTES,
+    _field_layout,
+    launch_plan,
+)
 from torch_parity import load_into_port, t
 
 ATOL = 2e-5
@@ -113,3 +121,103 @@ def test_no_fallback_off_cpu():
     bs = [torch.zeros(2, device="meta")]
     with pytest.raises(ValueError):
         siren_apply_fused(xs, ws, bs)
+
+
+# (field widths, layer widths with the input first): the decoder's nets,
+# then odd ones
+PLAN_CASES = {
+    "feat_imnet": ([200, 1], [201, 64, 64, 256, 64]),
+    "flow_imnet": ([64, 192, 6, 1], [263, 64, 64, 256, 4]),
+    "encode_imnet": ([64, 64, 192, 192, 6, 6, 1],
+                     [525, 64, 64, 256, 256, 3]),
+    "one_field_width_1": ([1], [1, 64, 3]),
+    "k_under_one_chunk": ([3, 4], [7, 64, 64, 4]),
+    "k_exact_chunks": ([100, 28], [128, 64, 256, 3]),
+    "hidden_16": ([8], [8, 16, 4]),
+    "out_5": ([200, 1], [201, 64, 5]),
+    "first_layer_wide": ([20, 20], [40, 256, 256, 64]),
+    "single_layer": ([9], [9, 3]),
+}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_launch_plan(case):
+    splits, dims = PLAN_CASES[case]
+    plan = launch_plan(splits, dims)
+    n_layers = len(dims) - 1
+    assert plan.tile_rows == 64 and plan.threads == 256
+    assert len(plan.pitch) == len(plan.kc) == n_layers
+    for l, (pitch, kc) in enumerate(zip(plan.pitch, plan.kc)):
+        n = dims[l + 1]
+        if pitch == 0:  # reduction over k: only a narrow last layer
+            assert l == n_layers - 1 and l > 0 and n <= 4 and kc == 0
+        else:
+            assert pitch in (64, 256) and n <= pitch
+            assert 1 <= kc and kc * pitch * 4 <= 16384  # one ring stage
+    kc0 = plan.kc[0]
+    assert kc0 <= 64
+    assert len(plan.chunks) == -(-dims[0] // kc0)
+    # the pieces walk every first-layer column exactly once, in order
+    cols = []
+    for i, chunk in enumerate(plan.chunks):
+        width = sum(hi - lo for _, lo, hi in chunk)
+        assert width == (kc0 if i < len(plan.chunks) - 1
+                         else dims[0] - kc0 * i)
+        for f, lo, hi in chunk:
+            assert 0 <= f < len(splits) and 0 <= lo < hi <= splits[f]
+            cols += [(f, c) for c in range(lo, hi)]
+    assert cols == [(f, c) for f, w in enumerate(splits) for c in range(w)]
+    assert plan.smem_bytes <= MAX_SMEM_BYTES
+    flat = plan.flat()
+    n_pieces = sum(len(c) for c in plan.chunks)
+    assert len(flat) == 5 + 2 * n_layers + 4 * n_pieces
+    assert flat[:5] == [64, 256, plan.smem_bytes, len(plan.chunks), n_pieces]
+
+
+def test_launch_plan_decoder_nets_share_an_sm():
+    """At the decoder's nets two blocks fit in an SM's 227 KB (less 1 KB
+    that the system keeps per block)."""
+    for name in NETS:
+        plan = launch_plan(*PLAN_CASES[name])
+        assert 2 * (plan.smem_bytes + 1024) <= 227 * 1024
+
+
+@pytest.mark.parametrize("splits,dims", [
+    ([8], [8, 257, 4]),          # hidden width over 256
+    ([8], [8, 16, 300]),         # output width over 256
+    ([8], [9, 16, 4]),           # fields do not add up to the input width
+    ([1] * 9, [9, 16, 4]),       # more than 8 fields
+    ([8, 0], [8, 16, 4]),        # an empty field
+    ([5000], [5000, 64, 4]),     # more first-layer chunks than the kernel takes
+])
+def test_launch_plan_rejects(splits, dims):
+    with pytest.raises(ValueError):
+        launch_plan(splits, dims)
+
+
+def test_chunked_first_layer_matches_plain(rng):
+    """Summing the first layer chunk by chunk, each chunk gathered from its
+    (field, column range) pieces as the kernel gathers it, changes only the
+    summation order: within 1e-6 of the plain version at the three nets."""
+    for name in NETS:
+        splits, dims = PLAN_CASES[name]
+        plan = launch_plan(splits, dims)
+        xs = [t(rng.uniform(-1, 1, (97, c)).astype(np.float32))
+              for c in splits]
+        ws, bs = [], []
+        for i, (a, b) in enumerate(zip(dims, dims[1:])):
+            bound = 1.0 / a if i == 0 else np.sqrt(6.0 / a) / 30.0
+            ws.append(t(rng.uniform(-bound, bound, (a, b)).astype(np.float32)))
+            bs.append(t((rng.uniform(-1, 1, b) / np.sqrt(a)).astype(
+                np.float32)))
+        h = torch.zeros(97, dims[1])
+        k0 = 0
+        for chunk in plan.chunks:
+            x = torch.cat([xs[f][:, lo:hi] for f, lo, hi in chunk], -1)
+            h = h + x @ ws[0][k0:k0 + x.shape[1]]
+            k0 += x.shape[1]
+        assert k0 == dims[0]
+        h = torch.sin(30.0 * (h + bs[0]))
+        got = siren_apply_fused_plain(h, ws[1:], bs[1:])
+        want = siren_apply_fused_plain(xs, ws, bs)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
