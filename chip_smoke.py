@@ -20,11 +20,30 @@ Run from the root of a checkout. In order:
    shape and finiteness, kernel launches per window, the same window with
    the plain SIREN (max|d| <= 1e-3), a small window against the port on the
    CPU (max|d| <= 1e-3), timings, and one window's device time by kernel;
-5. the ``kernels`` JSON line, then the result line.
+5. the rest of the serving surface, same model, weights and pair:
+   a. the kernel against plain at the chunked stages' shapes (8 x 65,536
+      rows, separate contiguous fields), at a batch of two (fields broadcast
+      over time with period B*Q) and at a padded last chunk;
+   b. ``ChunkedDecoder.decode`` against the full ``decode`` of the same
+      features (max|d| <= 1e-4, 12 launches);
+   c. ``render_pairs`` of two different pairs against ``render_window`` of
+      each (max|d| <= 1e-3);
+   d. local-ensemble and test-mode windows (shape, finite, 12 and 3
+      launches, the plain-SIREN window and a 16x16 window on the CPU within
+      1e-3), and a 64x64 ``decode_zoom`` window against the CPU;
+   e. each knob against the fp32 window, under the JAX package's own bars
+      (``mlp_dtype`` must launch the kernel 0 times);
+   f. one production-size window through the chunked path, LR 270x480 ->
+      8 x 1080x1920: finite, ms and peak memory;
+   g. the quality line: PSNR at t = 0 and t = 0.5 on two seeded synthetic
+      scenes for the kernel, the plain SIREN (within 0.01 dB) and each knob;
+6. the ``kernels`` JSON line (launches summed over every path driven), then
+   the result line.
 
 Any failed check raises and the script exits non-zero; without a CUDA
 device it exits 2 and prints no result. ``python3 chip_smoke.py --kernels``
-stops after phase 3 and prints no result line (for work on a kernel).
+stops after phases 3 and 5a and prints no result line (for work on a
+kernel).
 """
 
 from __future__ import annotations
@@ -45,6 +64,9 @@ SCALE = 4
 KERNEL_BAR = 1e-4   # kernel vs plain, one net
 SINE_BAR = 5e-7     # the kernel's sine vs a float64 sine (sinf: 2 ulp)
 WINDOW_BAR = 1e-3   # whole window, kernel vs plain SIREN / GPU vs CPU
+CHUNK = 65536       # ChunkedDecoder's default chunk of queries
+PSNR_BAR = 0.01     # dB, kernel vs plain SIREN on the quality scenes
+HD_LR_HW = (270, 480)  # x4 -> 1080x1920
 # the decoder's three nets: field splits and layer widths (input first)
 NETS = {
     "feat_imnet": ([200, 1], [201, 64, 64, 256, 64]),
@@ -353,6 +375,323 @@ def main_path(card: str):
     return launches
 
 
+# ----------------------------------------------------------------- phase 5
+
+def chunk_fields(name, nt, B, Cq, device, pad_from=None):
+    """One net's fields as ``decode_chunk_ab`` / ``decode_chunk_cd`` hand
+    them over for nt times, a batch of B and Cq queries: separate contiguous
+    gathers, the time-independent ones broadcast over the time axis (row
+    period B * Cq). With ``pad_from``, queries from that index on repeat the
+    one before, as in a padded last chunk."""
+    import torch
+
+    def r(*shape):
+        v = torch.rand(*shape, device=device) * 2 - 1
+        if pad_from is not None:
+            v[..., pad_from:, :] = v[..., pad_from - 1:pad_from, :]
+        return v
+
+    def tile_t(v):
+        return v.expand(nt, *v.shape)
+
+    if name == "feat_imnet":
+        return [tile_t(r(B, Cq, 200)), r(nt, B, Cq, 1)]
+    if name == "flow_imnet":
+        return [r(nt, B, Cq, 64), tile_t(r(B, Cq, 192)), tile_t(r(B, Cq, 6)),
+                r(nt, B, Cq, 1)]
+    return [r(nt * B, Cq, c) for c in NETS[name][0]]
+
+
+def slice_kernel_checks(device) -> float:
+    """Phase 5a; returns the largest max|kernel - plain|."""
+    import torch
+
+    rng = np.random.default_rng(1)
+    torch.manual_seed(1)
+    worst = 0.0
+    for name, (_, widths) in NETS.items():
+        ws, bs = siren_net(rng, widths, device)
+        xs = chunk_fields(name, N_TIMES, 1, CHUNK, device)
+        worst = max(worst, check(f"{name} chunk {N_TIMES}x{CHUNK}",
+                                 xs, ws, bs))
+        xs = chunk_fields(name, N_TIMES, 1, CHUNK, device,
+                          pad_from=CHUNK - 16384)
+        worst = max(worst, check(f"{name} padded last chunk", xs, ws, bs))
+        xs = chunk_fields(name, N_TIMES, 2, 30001, device)
+        worst = max(worst, check(f"{name} B=2 (period 2x30001)", xs, ws, bs))
+        del xs
+    torch.cuda.empty_cache()
+    return worst
+
+
+class Launches:
+    """Counts kernel launches path by path: ``run`` sets the wrapper's count
+    to 0, drives one path, checks the count it read and adds it up."""
+
+    def __init__(self):
+        self.total = 0
+
+    def run(self, what: str, expect: int, fn):
+        from stif_tpu_torch.ops import siren_apply_fused
+
+        siren_apply_fused.launches = 0
+        out = fn()
+        n = siren_apply_fused.launches
+        if n != expect:
+            raise AssertionError(f"{what}: {n} SIREN launches, expected "
+                                 f"{expect}")
+        self.total += n
+        return out
+
+
+def deployed_model(**knobs):
+    """The deployed full-width model with the trained weights."""
+    from stif_tpu_torch.convert import load_pth
+    from stif_tpu_torch.models import LunaTokis
+
+    model = LunaTokis(rgb_skip=True, rgb_skip_bicubic=True, **knobs)
+    load_pth(model, str(WEIGHTS))  # strict: the knobs change no parameter
+    return model
+
+
+TIMED_RUNS = 3  # calls of ``fn`` that ``timed`` makes
+
+
+def timed(fn):
+    """Wall ms of each call of ``fn`` after a first, untimed one, and the
+    peak device memory in GiB over all of them; ``fn`` must end
+    synchronised (here: with its result on the host)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    runs = []
+    for _ in range(TIMED_RUNS - 1):
+        t0 = time.perf_counter()
+        fn()
+        runs.append(1e3 * (time.perf_counter() - t0))
+    return runs, torch.cuda.max_memory_allocated() / 2**30
+
+
+def max_abs(a, b) -> float:
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes differ: {a.shape} vs {b.shape}")
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+
+def require(what: str, value: float, ok: bool) -> None:
+    log(f"  {what}: {value:.3e}")
+    if not ok or not np.isfinite(value):
+        raise AssertionError(f"{what}: {value} is outside its bar")
+
+
+def fmt_runs(runs) -> str:
+    return (f"{np.mean(runs):.1f} ms (runs "
+            f"{', '.join(f'{r:.1f}' for r in runs)})")
+
+
+def slice_phase(card: str, device) -> int:
+    """Phases 5b-5g. Returns the SIREN launches of every path driven."""
+    import torch
+    from stif_tpu_torch.data.synthetic import render_sequence
+    from stif_tpu_torch.runtime import (ChunkedDecoder, InferencePipeline,
+                                        pad_to_multiple)
+    from stif_tpu_torch.runtime.eval import _score_space_time_sr
+
+    count = Launches()
+    model = deployed_model()
+    pipe = InferencePipeline(model)
+    rng = np.random.default_rng(0)
+    frames = rng.random((2,) + LR_HW + (3,)).astype(np.float32)  # phase 4's
+    other = rng.random((2,) + LR_HW + (3,)).astype(np.float32)
+    small = rng.random((2, 16, 16, 3)).astype(np.float32)
+    times = [i / N_TIMES for i in range(N_TIMES)]
+    HH, WW = LR_HW[0] * SCALE, LR_HW[1] * SCALE
+    window = count.run("render_window", 3,
+                       lambda: pipe.render_window(frames, times))
+
+    log("[5b] ChunkedDecoder.decode vs the full decode of the same features")
+    x = torch.from_numpy(frames[None]).to(device)
+    t = torch.tensor(times, device=device)
+    with torch.inference_mode():
+        feat = model.gen_feat(x)
+        full = count.run("decode", 3,
+                         lambda: model.decode(feat, x, t).cpu().numpy())
+    steps = -(-HH * WW // CHUNK)
+    decoder = ChunkedDecoder(model, CHUNK)
+    chunked = count.run("ChunkedDecoder.decode", 3 * steps,
+                        lambda: decoder.decode(feat, x, t, (HH, WW)))
+    d = max_abs(chunked, full)
+    require(f"chunked ({steps} steps of {CHUNK}) vs full decode, max|d|", d,
+            d <= KERNEL_BAR)
+    runs, peak = count.run(
+        "ChunkedDecoder.decode, timed", TIMED_RUNS * 3 * steps,
+        lambda: timed(lambda: decoder.decode(feat, x, t, (HH, WW))))
+    with torch.inference_mode():
+        full_runs, full_peak = count.run(
+            "decode, timed", TIMED_RUNS * 3,
+            lambda: timed(lambda: model.decode(feat, x, t).cpu().numpy()))
+    log(f"  chunked decode {fmt_runs(runs)}, peak {peak:.2f} GiB; full "
+        f"decode {fmt_runs(full_runs)}, peak {full_peak:.2f} GiB (host copy "
+        f"included) [{card}]")
+    del feat, full, chunked
+
+    log("[5c] render_pairs of two pairs vs render_window of each")
+    pairs = np.stack([frames, other])
+    both = count.run("render_pairs, B = 2", 3 * steps,
+                     lambda: pipe.render_pairs(pairs, times))
+    if both.shape != (2, N_TIMES, HH, WW, 3):
+        raise AssertionError(f"render_pairs shape {both.shape}")
+    ref_other = count.run("render_window", 3,
+                          lambda: pipe.render_window(other, times))
+    d = max(max_abs(both[0], window), max_abs(both[1], ref_other))
+    require("render_pairs vs render_window, max|d|", d, d <= WINDOW_BAR)
+    runs, peak = count.run(
+        "render_pairs, timed", TIMED_RUNS * 3 * steps,
+        lambda: timed(lambda: pipe.render_pairs(pairs, times)))
+    log(f"  render_pairs, 2 pairs: {fmt_runs(runs)}, peak {peak:.2f} GiB "
+        f"[{card}]")
+    del both, pairs
+
+    log("[5d] local-ensemble, test-mode and zoom windows")
+    cpu_model = deployed_model()
+    cpu_pipe = InferencePipeline(cpu_model, device="cpu")
+    for mode, expect in (("local_ensemble", 12), ("test_mode", 3)):
+        setattr(pipe, mode, True)
+        setattr(cpu_pipe, mode, True)
+        out = count.run(mode, expect,
+                        lambda: pipe.render_window(frames, times))
+        if out.shape != window.shape or not np.isfinite(out).all():
+            raise AssertionError(f"{mode} window: shape {out.shape}")
+        runs, peak = count.run(
+            f"{mode}, timed", TIMED_RUNS * expect,
+            lambda: timed(lambda: pipe.render_window(frames, times)))
+        log(f"  {mode} window {out.shape}, finite, {expect} launches: "
+            f"{fmt_runs(runs)}, peak {peak:.2f} GiB; max|d| to the default "
+            f"window {max_abs(out, window):.3e} [{card}]")
+        set_fused(model, False)
+        plain = count.run(f"{mode}, plain SIREN", 0,
+                          lambda: pipe.render_window(frames, times))
+        set_fused(model, True)
+        d = max_abs(out, plain)
+        require(f"{mode}: kernel window vs plain-SIREN window, max|d|", d,
+                d <= WINDOW_BAR)
+        gpu = count.run(f"{mode}, 16x16", expect,
+                        lambda: pipe.render_window(small, times[:2]))
+        d = max_abs(gpu, cpu_pipe.render_window(small, times[:2]))
+        require(f"{mode}: 16x16 window, GPU (kernel) vs CPU, max|d|", d,
+                d <= WINDOW_BAR)
+        setattr(pipe, mode, False)
+        setattr(cpu_pipe, mode, False)
+        del out, plain
+    xs = torch.from_numpy(small[None])
+    zoom = dict(out_size=(256, 256), window=(64, 64), center=(0.1, -0.2))
+    with torch.inference_mode():
+        xg = xs.to(device)
+        gpu = count.run("decode_zoom", 3, lambda: model.decode_zoom(
+            model.gen_feat(xg), xg, t[:2], **zoom).cpu().numpy())
+        ref = cpu_model.decode_zoom(cpu_model.gen_feat(xs), xs,
+                                    torch.tensor(times[:2]), **zoom).numpy()
+    if gpu.shape != (2, 1, 64, 64, 3):
+        raise AssertionError(f"decode_zoom shape {gpu.shape}")
+    d = max_abs(gpu, ref)
+    require("decode_zoom 64x64 of a 256x256 canvas, GPU vs CPU, max|d|", d,
+            d <= WINDOW_BAR)
+    del cpu_model, cpu_pipe
+
+    log("[5e] knobs against the fp32 window (trained weights)")
+    bf16, fp8 = torch.bfloat16, torch.float8_e4m3fn
+    # knob -> (constructor arguments, launches per window, bar on max|d|)
+    knobs = {
+        "encode_splitk (plain path)": (dict(encode_splitk=True, fused=False),
+                                       0, lambda d: d <= 1e-4),
+        "stagec_dedup": (dict(stagec_dedup=True), 3, lambda d: d <= 1e-6),
+        "gather_dtype=bfloat16": (dict(gather_dtype=bf16), 3,
+                                  lambda d: 0 < d < 2e-2),
+        "mlp_dtype=bfloat16": (dict(mlp_dtype=bf16), 0,
+                               lambda d: 0 < d < 2e-2),
+        "stagec_nearest": (dict(stagec_nearest=True), 3,
+                           lambda d: 0 < d < 0.5),
+        "stagec_dtype=float8_e4m3fn": (dict(stagec_dtype=fp8), 3,
+                                       lambda d: 0 < d < 2e-1),
+    }
+    knob_pipes = {}
+    for name, (kw, expect, bar) in knobs.items():
+        knob_pipes[name] = (InferencePipeline(deployed_model(**kw)), expect)
+        out = count.run(name, expect, lambda: knob_pipes[name][0]
+                        .render_window(frames, times))
+        if not np.isfinite(out).all():
+            raise AssertionError(f"{name}: window not finite")
+        d = max_abs(out, window)
+        require(f"{name}: {expect} launches, max|d| to the fp32 window", d,
+                bar(d))
+        del out
+
+    log(f"[5f] production size: LR {HD_LR_HW[0]}x{HD_LR_HW[1]} -> "
+        f"{N_TIMES} x {HD_LR_HW[0] * SCALE}x{HD_LR_HW[1] * SCALE} by "
+        "render_pairs (chunked)")
+    hd = rng.random((1, 2) + HD_LR_HW + (3,)).astype(np.float32)
+    hp = -(-HD_LR_HW[0] // pipe.bucket) * pipe.bucket  # padded LR rows
+    hd_steps = -(-hp * SCALE * HD_LR_HW[1] * SCALE // CHUNK)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = count.run("render_pairs, 1080p", 3 * hd_steps,
+                    lambda: pipe.render_pairs(hd, times))
+    expect_shape = (1, N_TIMES, HD_LR_HW[0] * SCALE, HD_LR_HW[1] * SCALE, 3)
+    if out.shape != expect_shape or not np.isfinite(out).all():
+        raise AssertionError(f"1080p window: shape {out.shape}")
+    del out
+    t0 = time.perf_counter()
+    count.run("render_pairs, 1080p", 3 * hd_steps,
+              lambda: pipe.render_pairs(hd, times))
+    hd_ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.inference_mode():  # the encoder's share, input on the card
+        xt = torch.from_numpy(pad_to_multiple(hd, 4, pipe.bucket)[0]).to(
+            device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.gen_feat(xt)
+        torch.cuda.synchronize()
+        enc_ms = 1e3 * (time.perf_counter() - t0)
+        del xt
+    log(f"  {expect_shape} finite, {hd_steps} chunk steps, {3 * hd_steps} "
+        f"launches: {hd_ms:.1f} ms/window (second run), of which the encoder "
+        f"(gen_feat, run again alone) {enc_ms:.1f} ms; "
+        f"{1e3 * N_TIMES / hd_ms:.2f} frames/s, peak memory {peak:.2f} GiB "
+        f"[{card}]")
+
+    log("[5g] quality: Y-channel PSNR on two synthetic scenes (x4, LR "
+        "36x48), space-time SR protocol, trained weights")
+    clips = [render_sequence(990_000 + k, 7, (144, 192)) for k in range(2)]
+    n_windows = sum((c.shape[0] + 1) // 2 - 1 for c in clips)
+
+    def psnr_by_time(p, expect):
+        scores = count.run("quality windows", expect * n_windows, lambda: [
+            s for clip in clips for s in _score_space_time_sr(p, clip)[0]])
+        return {tq: float(np.mean([ps for tt, ps, _ in scores if tt == tq]))
+                for tq in (0.0, 0.5)}
+
+    kernel_q = psnr_by_time(pipe, 3)
+    set_fused(model, False)
+    plain_q = psnr_by_time(pipe, 0)
+    set_fused(model, True)
+    log(f"  fp32, kernel:      PSNR t=0 {kernel_q[0.0]:.4f} dB, t=0.5 "
+        f"{kernel_q[0.5]:.4f} dB")
+    log(f"  fp32, plain SIREN: PSNR t=0 {plain_q[0.0]:.4f} dB, t=0.5 "
+        f"{plain_q[0.5]:.4f} dB")
+    for tq in (0.0, 0.5):
+        if not abs(kernel_q[tq] - plain_q[tq]) <= PSNR_BAR:
+            raise AssertionError(f"kernel PSNR at t={tq} is off the plain "
+                                 f"SIREN's by more than {PSNR_BAR} dB")
+    for name, (p, expect) in knob_pipes.items():
+        q = psnr_by_time(p, expect)
+        log(f"  {name}: PSNR t=0 {q[0.0]:.4f} dB ({q[0.0] - kernel_q[0.0]:+.4f}"
+            f"), t=0.5 {q[0.5]:.4f} dB ({q[0.5] - kernel_q[0.5]:+.4f})")
+    return count.total
+
+
 def main() -> int:
     import torch
 
@@ -391,12 +730,18 @@ def main() -> int:
     err, ms, plain_ms, bound_ms, bound_by = kernel_phase(device, peaks)
     torch.cuda.synchronize()
     if "--kernels" in sys.argv[1:]:
+        log("[5a] kernel vs plain at the chunked stages' shapes")
+        err = max(err, slice_kernel_checks(device))
         log(f"    kernels: max|d| {err:.3e}, {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms [{card}]")
         return 0
 
     log("[4] main path: InferencePipeline.render_window, trained weights")
     launches = main_path(card)
+
+    log("[5a] kernel vs plain at the chunked stages' shapes")
+    err = max(err, slice_kernel_checks(device))
+    launches += slice_phase(card, device)
 
     kernels = {"kernels": [{
         "name": "siren_fused",
@@ -411,8 +756,9 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
     }]}
-    log(f"[5] done in {time.perf_counter() - t_start:.1f} s; kernel times "
-        "are the sum of the three nets of one window")
+    log(f"[6] done in {time.perf_counter() - t_start:.1f} s; kernel times "
+        "are the sum of the three nets of one window, launches the sum over "
+        "every path driven")
     log(card)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

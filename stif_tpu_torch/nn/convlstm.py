@@ -30,11 +30,11 @@ class DeformableConvLSTM(nn.Module):
     """Unidirectional deformable ConvLSTM over (B, T, H, W, C); state starts
     at zero."""
 
-    def __init__(self, nf: int = 64, groups: int = 8):
+    def __init__(self, nf: int = 64, groups: int = 8, gather_dtype=None):
         super().__init__()
         self.nf = nf
-        self.pcd_h = EasyPCD(nf, groups)
-        self.pcd_c = EasyPCD(nf, groups)
+        self.pcd_h = EasyPCD(nf, groups, gather_dtype)
+        self.pcd_c = EasyPCD(nf, groups, gather_dtype)
         self.cell_list = nn.ModuleList([ConvLSTMCell(nf)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -55,10 +55,10 @@ class BiDeformableConvLSTM(nn.Module):
     1x1 merge. Both directions run as one pass at batch 2B, [x; reversed x]:
     every op of a step is per-sample, so this is the same maths."""
 
-    def __init__(self, nf: int = 64, groups: int = 8):
+    def __init__(self, nf: int = 64, groups: int = 8, gather_dtype=None):
         super().__init__()
         self.nf = nf
-        self.forward_net = DeformableConvLSTM(nf, groups)
+        self.forward_net = DeformableConvLSTM(nf, groups, gather_dtype)
         self.conv_1x1 = Conv(2 * nf, nf, 1, 1, 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

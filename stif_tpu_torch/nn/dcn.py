@@ -15,12 +15,14 @@ from stif_tpu_torch.ops.deform_conv import deform_conv2d, split_offset_mask
 class DCNSep(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 1,
-                 dilation: int = 1, deformable_groups: int = 8):
+                 dilation: int = 1, deformable_groups: int = 8,
+                 gather_dtype=None):
         super().__init__()
         k = kernel_size
         self.stride, self.padding, self.dilation = stride, padding, dilation
         self.kernel_size = k
         self.deformable_groups = deformable_groups
+        self.gather_dtype = gather_dtype  # e.g. torch.bfloat16 gather source
         # zero-initialised: a fresh DCNSep samples the regular grid
         self.conv_offset_mask = Conv(in_channels, deformable_groups * 3 * k * k,
                                      k, stride, padding)
@@ -39,4 +41,5 @@ class DCNSep(nn.Module):
                                          self.kernel_size)
         return deform_conv2d(x, offset, mask, self.weight, self.bias,
                              stride=self.stride, padding=self.padding,
-                             dilation=self.dilation)
+                             dilation=self.dilation,
+                             gather_dtype=self.gather_dtype)

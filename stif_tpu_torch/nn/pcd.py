@@ -19,13 +19,14 @@ def _up2(x: torch.Tensor) -> torch.Tensor:
 
 
 class PCDAlign(nn.Module):
-    def __init__(self, nf: int = 64, groups: int = 8):
+    def __init__(self, nf: int = 64, groups: int = 8, gather_dtype=None):
         super().__init__()
         for s in ("1", "2"):
             for lvl in ("L3", "L2", "L1"):
                 setattr(self, f"{lvl}_offset_conv1_{s}", Conv(2 * nf, nf))
                 setattr(self, f"{lvl}_dcnpack_{s}",
-                        DCNSep(nf, nf, deformable_groups=groups))
+                        DCNSep(nf, nf, deformable_groups=groups,
+                               gather_dtype=gather_dtype))
             setattr(self, f"L3_offset_conv2_{s}", Conv(nf, nf))
             for lvl in ("L2", "L1"):
                 setattr(self, f"{lvl}_offset_conv2_{s}", Conv(2 * nf, nf))
@@ -69,13 +70,13 @@ class PCDAlign(nn.Module):
 class EasyPCD(nn.Module):
     """Build L2/L3 pyramids of two single-level maps, align, fuse 1x1."""
 
-    def __init__(self, nf: int = 64, groups: int = 8):
+    def __init__(self, nf: int = 64, groups: int = 8, gather_dtype=None):
         super().__init__()
         self.fea_L2_conv1 = Conv(nf, nf, 3, 2, 1)
         self.fea_L2_conv2 = Conv(nf, nf, 3, 1, 1)
         self.fea_L3_conv1 = Conv(nf, nf, 3, 2, 1)
         self.fea_L3_conv2 = Conv(nf, nf, 3, 1, 1)
-        self.pcd_align = PCDAlign(nf, groups)
+        self.pcd_align = PCDAlign(nf, groups, gather_dtype)
         self.fusion = Conv(2 * nf, nf, 1, 1, 0)
 
     def forward(self, f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Tensor ops of the port (counterparts of ``stif_tpu.ops``)."""
 
-from stif_tpu_torch.ops.coords import make_coord
+from stif_tpu_torch.ops.coords import make_coord, make_coord_demo
 from stif_tpu_torch.ops.deform_conv import deform_conv2d, split_offset_mask
 from stif_tpu_torch.ops.grid_sample import grid_sample
 from stif_tpu_torch.ops.pixel_shuffle import pixel_shuffle
@@ -17,6 +17,7 @@ __all__ = [
     "imresize",
     "imresize_to",
     "make_coord",
+    "make_coord_demo",
     "pixel_shuffle",
     "resize_bilinear",
     "siren_apply_fused",

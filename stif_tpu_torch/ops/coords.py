@@ -26,3 +26,25 @@ def make_coord(shape, ranges=None, flatten: bool = True, device=None,
     if flatten:
         ret = ret.reshape(-1, ret.shape[-1])
     return torch.from_numpy(ret).to(device=device, dtype=dtype)
+
+
+def make_coord_demo(shape, new_shape, center, device=None) -> torch.Tensor:
+    """Zoom-window coordinates: a ``new_shape`` crop of the ``shape`` grid's
+    cell lattice centred at ``center`` (normalised (y, x)), shifted right /
+    down if it underflows -1. Computed in float64 and rounded once to
+    float32. Returns ``(prod(new_shape), len(new_shape))``.
+    """
+    interval = (2.0 / shape[0], 2.0 / shape[1])
+    seqs = []
+    for i, n in enumerate(new_shape):
+        if n % 2 == 0:
+            v0 = -interval[i] * (n / 2) + interval[i] / 2 + center[i]
+        else:
+            v0 = -interval[i] * (n // 2) + center[i]
+        seq = v0 + interval[i] * np.arange(n, dtype=np.float64)
+        if seq.min() < -1:
+            seq = seq + (-1 - seq.min())
+        seqs.append(seq)
+    grids = np.meshgrid(*seqs, indexing="ij")
+    ret = np.stack(grids, axis=-1).astype(np.float32)
+    return torch.from_numpy(ret.reshape(-1, len(new_shape))).to(device)

@@ -15,6 +15,8 @@ from typing import Tuple, Union
 
 import torch
 
+from stif_tpu_torch.ops.precision import round_to
+
 IntPair = Union[int, Tuple[int, int]]
 
 
@@ -38,12 +40,15 @@ def split_offset_mask(conv_out: torch.Tensor, deformable_groups: int,
 
 def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                   weight: torch.Tensor, bias=None, stride: IntPair = 1,
-                  padding: IntPair = 1, dilation: IntPair = 1) -> torch.Tensor:
+                  padding: IntPair = 1, dilation: IntPair = 1,
+                  gather_dtype=None) -> torch.Tensor:
     """Modulated deformable conv, channels-last.
 
     x: (B, H, W, Cin); offset: (B, Ho, Wo, G, K, 2) (dy, dx) in pixels;
     mask: (B, Ho, Wo, G, K), already sigmoided; weight: (Cout, Cin, kh, kw)
     OIHW, tap k = i*kw + j; bias: (Cout,) or None. Returns (B, Ho, Wo, Cout).
+    ``gather_dtype`` (e.g. ``torch.bfloat16``) rounds the gathered source
+    ``x``; corner weights, mask and the contraction stay fp32.
     """
     B, H, W, Cin = x.shape
     Cout, _, kh, kw = weight.shape
@@ -76,7 +81,7 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     x0 = x0.long()
     m = mask.reshape(B, Q, G, K)
 
-    xf = x.reshape(B, H * W, G, CpG)
+    xf = round_to(x, gather_dtype).reshape(B, H * W, G, CpG)
     bi = torch.arange(B, device=dev)[:, None, None, None]
     gi = torch.arange(G, device=dev)[None, None, :, None]
 

@@ -1,5 +1,5 @@
 """Inference pipeline (port of ``stif_tpu/runtime/pipeline.py``): padding,
-sliding frame windows, and the window renderer.
+sliding frame windows, the window renderer and the batched-pair renderer.
 
 The JAX pipeline buckets padded shapes to reuse compiled programs; PyTorch
 runs eagerly, so here ``bucket`` only sets the padding multiple, which keeps
@@ -77,11 +77,16 @@ class InferencePipeline:
     unless ``device`` says otherwise)."""
 
     def __init__(self, model: torch.nn.Module, scale: int = 4,
-                 bucket: int = 16, device=None, self_ensemble: bool = False):
+                 bucket: int = 16, device=None, test_mode: bool = False,
+                 local_ensemble: bool = False, self_ensemble: bool = False):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.scale = scale
         self.bucket = bucket
+        # test mode: the decoder reads a bilinear x4 upsample of the inputs
+        self.test_mode = test_mode
+        # four area-weighted shifted decode passes: a quality / compute trade
+        self.local_ensemble = local_ensemble
         # x8 geometric self-ensemble (EDSR dihedral average): not a
         # reference mode; an optional quality / compute trade
         self.self_ensemble = self_ensemble
@@ -104,7 +109,9 @@ class InferencePipeline:
             t = torch.as_tensor(np.asarray(times, np.float32),
                                 device=self.device)
             out = self.model(xt, t, out_size=(hp * self.scale,
-                                              wp * self.scale))
+                                              wp * self.scale),
+                             test=self.test_mode,
+                             local_ensemble=self.local_ensemble)
             out = out[:, 0, :h * self.scale, :w * self.scale].cpu().numpy()
         return out
 
@@ -129,6 +136,30 @@ class InferencePipeline:
                 o = o[:, :, ::-1]
             acc = o if acc is None else acc + o
         return acc / 8.0
+
+    def render_pairs(self, pairs: np.ndarray, times: Sequence[float],
+                     chunk_size: int = 65536) -> np.ndarray:
+        """Batched-pair decode: (B, 2, H, W, 3) distinct LR pairs ->
+        (B, nt, H*scale, W*scale, 3).
+
+        The encoder runs once at batch B; the decoder goes through the
+        ``ChunkedDecoder``, so the B * nt query set stays memory-bounded at
+        any frame size. Neither ensemble applies here, as in the JAX package."""
+        from stif_tpu_torch.runtime.chunked import ChunkedDecoder
+
+        x, (h, w) = pad_to_multiple(np.asarray(pairs, np.float32), 4,
+                                    self.bucket)
+        hp, wp = x.shape[2], x.shape[3]
+        with torch.inference_mode():
+            xt = torch.from_numpy(x).to(self.device)
+            feat = self.model.gen_feat(xt)
+        decoder = ChunkedDecoder(self.model, chunk_size, device=self.device)
+        out = decoder.decode(
+            feat, xt, torch.as_tensor(np.asarray(times, np.float32)),
+            (hp * self.scale, wp * self.scale),
+            hr_inp_upsample=self.test_mode)
+        out = np.moveaxis(out, 0, 1)  # (B, nt, HH, WW, 3)
+        return out[:, :, :h * self.scale, :w * self.scale]
 
     def render_sequence(self, frames: np.ndarray,
                         n_times: int = 8) -> List[np.ndarray]:

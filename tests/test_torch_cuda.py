@@ -145,3 +145,111 @@ def test_kernel_rejects_bad_inputs(cuda, rng):
         siren_apply_fused([x], [ws[0].t().contiguous().t(), ws[1]], bs)
     with pytest.raises(ValueError):  # column-strided field
         siren_apply_fused([torch.zeros(8, 10, device=cuda).t()], ws, bs)
+
+
+def _chunk_fields(name, nt, B, Cq, device):
+    """One net's fields as the chunked decode stages hand them over:
+    separate contiguous gathers, the time-independent ones broadcast over
+    the time axis (row period B * Cq)."""
+    def r(*shape):
+        return torch.rand(*shape, device=device) * 2 - 1
+
+    def tile_t(v):
+        return v.expand(nt, *v.shape)
+
+    if name == "feat_imnet":
+        return [tile_t(r(B, Cq, 200)), r(nt, B, Cq, 1)]
+    if name == "flow_imnet":
+        return [r(nt, B, Cq, 64), tile_t(r(B, Cq, 192)), tile_t(r(B, Cq, 6)),
+                r(nt, B, Cq, 1)]
+    return [r(nt * B, Cq, c) for c in NETS[name][0]]
+
+
+@pytest.mark.parametrize("name", list(NETS))
+@pytest.mark.parametrize("B,Cq", [(1, 65536), (2, 30001), (2, 63)])
+def test_kernel_matches_plain_chunk_layouts(cuda, rng, name, B, Cq):
+    """The chunked stages' shapes: 8 times x one chunk of queries, and a
+    batch of two, where the broadcast fields' row period is B * Cq."""
+    splits, widths = NETS[name]
+    ws, bs = _net(rng, splits, widths, cuda)
+    torch.manual_seed(0)
+    xs = _chunk_fields(name, 8, B, Cq, cuda)
+    got = siren_apply_fused(xs, ws, bs)
+    torch.cuda.synchronize()
+    want = siren_apply_fused_plain(xs, ws, bs)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.fixture
+def small_model(cuda):
+    from stif_tpu_torch.models import LunaTokis
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    state = LunaTokis(nf=16, groups=4, front_RBs=1, back_RBs=1).state_dict()
+
+    def build(**kw):
+        model = LunaTokis(nf=16, groups=4, front_RBs=1, back_RBs=1,
+                          rgb_skip=True, rgb_skip_bicubic=True, **kw)
+        model.load_state_dict(state)
+        return model.to(cuda).eval()
+
+    x = torch.rand(2, 2, 8, 12, 3, device=cuda)
+    return build, x, torch.tensor([0.0, 0.4, 1.0], device=cuda)
+
+
+@pytest.mark.parametrize("case,launches", [
+    ("full", 3), ("local_ensemble", 12), ("test_mode", 3), ("zoom", 3),
+    ("mlp_dtype", 0)])
+def test_decode_paths_launch_the_kernel(small_model, case, launches):
+    """Each decode path on the card against the same path with the plain
+    SIREN (1e-4), with the launches it must make; ``mlp_dtype`` makes none."""
+    build, x, times = small_model
+    kw = dict(mlp_dtype=torch.bfloat16) if case == "mlp_dtype" else {}
+    model, plain = build(**kw), build(fused=False, **kw)
+
+    def run(m):
+        feat = m.gen_feat(x)
+        if case == "zoom":
+            return m.decode_zoom(feat, x, times, (64, 96), (9, 14),
+                                 (0.2, -0.1))
+        return m.decode(feat, x, times,
+                        local_ensemble=case == "local_ensemble",
+                        hr_inp_upsample=case == "test_mode")
+
+    with torch.inference_mode():
+        before = siren_apply_fused.launches
+        got = run(model)
+        assert siren_apply_fused.launches == before + launches
+        want = run(plain)
+        assert siren_apply_fused.launches == before + launches
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("chunk", [512, 500, 4096])
+def test_chunked_decoder_on_the_card(small_model, chunk):
+    """Chunked against the full decode of the same features (1e-4), a batch
+    of two, 3 launches per chunk step."""
+    from stif_tpu_torch.runtime import ChunkedDecoder
+
+    build, x, times = small_model
+    model = build()
+    with torch.inference_mode():
+        feat = model.gen_feat(x)
+        want = model.decode(feat, x, times).cpu().numpy()
+    before = siren_apply_fused.launches
+    got = ChunkedDecoder(model, chunk).decode(feat, x, times, (32, 48))
+    steps = -(-32 * 48 // min(chunk, 32 * 48))
+    assert siren_apply_fused.launches == before + 3 * steps
+    assert np.abs(got - want).max() <= 1e-4
+
+
+def test_round_to_fp8_saturates_on_the_card(cuda):
+    from stif_tpu_torch.ops.precision import round_to
+
+    x = torch.tensor([1000.0, -500.0, 448.0, 465.0, 0.3], device=cuda)
+    got = round_to(x, torch.float8_e4m3fn).cpu()
+    assert got.tolist() == [448.0, -448.0, 448.0, 448.0, 0.3125]
+    assert torch.equal(got, round_to(x.cpu(), torch.float8_e4m3fn))

@@ -13,6 +13,12 @@ import jax
 import numpy as np
 import torch
 
+# The tests run in several worker processes that share one machine's cores.
+# With PyTorch's default of a thread per core in each process they get in
+# each other's way and the port's tests take many times longer.
+NUM_THREADS = 2
+torch.set_num_threads(NUM_THREADS)
+
 
 def _fill(path, shape, rng):
     names = [getattr(p, "key", str(p)) for p in path]
