@@ -37,12 +37,28 @@ Run from the root of a checkout. In order:
       8 x 1080x1920: finite, ms and peak memory;
    g. the quality line: PSNR at t = 0 and t = 0.5 on two seeded synthetic
       scenes for the kernel, the plain SIREN (within 0.01 dB) and each knob;
+7. the model zoo, on weights drawn from a seeded ``torch.Generator`` with
+   every DCN offset conv perturbed:
+   a. the kernel against plain at the six nets of ``LunaTokisTrain``,
+      ``LunaTokisS`` and ``LunaTokisNoFlow`` with their real field layouts
+      (max|d| <= 1e-4), then timed at 1,966,080 rows beside each net's bound;
+   b. those three at full width (nf 64, groups 8, 5 + 40 blocks) on the
+      96x160 pair at 8 times: shape, finite, exactly 3 / 2 / 1 launches, the
+      same forward with the plain SIREN and a 16x16 window on the CPU within
+      1e-3, ms and peak memory;
+   c. ``LunaTokisZSM`` and ``TMNet`` at full width (TMNet through
+      ``render_window_tmnet``, 4 frames and 5 times, 19 frames out; and
+      without times): 0 launches, a small window against the CPU, ms;
+   d. every ``LIIF_<preset>`` through ``define_g`` from a plain dict, and
+      ``decode_mulfeat`` on ``test4``: finite, against the CPU, 0 launches;
+   e. ``eval_adobe_tmnet`` and ``eval_vid4_tmnet`` on rendered folders:
+      finite PSNR and SSIM;
 6. the ``kernels`` JSON line (launches summed over every path driven), then
    the result line.
 
 Any failed check raises and the script exits non-zero; without a CUDA
 device it exits 2 and prints no result. ``python3 chip_smoke.py --kernels``
-stops after phases 3 and 5a and prints no result line (for work on a
+stops after phases 3, 5a and 7a and prints no result line (for work on a
 kernel).
 """
 
@@ -73,6 +89,17 @@ NETS = {
     "flow_imnet": ([64, 192, 6, 1], [263, 64, 64, 256, 4]),
     "encode_imnet": ([64, 64, 192, 192, 6, 6, 1],
                      [525, 64, 64, 256, 256, 3]),
+}
+# the six nets of the model zoo (phase 7): LunaTokisTrain's three,
+# LunaTokisS's two and LunaTokisNoFlow's one, at nf 64 and an input pair
+ZOO_NETS = {
+    "train_feat": ([200], [200, 64, 64, 64, 256, 128]),
+    "train_flow": ([128, 200, 1], [329, 64, 64, 64, 256, 4]),
+    "train_encode": ([128, 198, 128, 198],
+                     [652, 64, 64, 64, 256, 256, 27]),
+    "s_flow": ([200, 1], [201, 64, 64, 256, 4]),
+    "s_encode": ([192, 192, 6, 6], [396, 64, 64, 256, 256, 3]),
+    "noflow_feat": ([200, 1], [201, 64, 64, 256, 256, 256, 3]),
 }
 # published dense peaks without sparsity (NVIDIA data sheets): fp32 on the
 # CUDA cores, and device-memory bandwidth
@@ -199,12 +226,34 @@ def sine_check(device) -> None:
             raise AssertionError(f"kernel sine off by {err} > {SINE_BAR}")
 
 
+def time_net(name, xs, ws, bs, peaks):
+    """Kernel and plain ms of one net on fields ``xs``, and the least ms the
+    card could take by operations (2 FLOPs per weight and row at the fp32
+    peak) and by bytes (each field's stored rows, the parameters and the
+    output once, at the memory rate)."""
+    from stif_tpu_torch.ops import siren_apply_fused, siren_apply_fused_plain
+    from stif_tpu_torch.ops.siren_fused import _field_layout
+
+    rows = xs[0].shape[:-1].numel()
+    k_ms = cuda_ms(lambda: siren_apply_fused(xs, ws, bs), 5)
+    p_ms = cuda_ms(lambda: siren_apply_fused_plain(xs, ws, bs), 3)
+    flops = 2 * rows * sum(w.numel() for w in ws)
+    stored = sum(width * period for width, _, period in
+                 (_field_layout(v, rows) for v in xs))
+    n_params = sum(w.numel() + b.numel() for w, b in zip(ws, bs))
+    nbytes = 4 * (stored + rows * ws[-1].shape[1] + n_params)
+    o_ms, y_ms = 1e3 * flops / peaks[0], 1e3 * nbytes / peaks[1]
+    log(f"  {name} Q={rows}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+        f"bound {max(o_ms, y_ms):.3f} ms ({flops / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e9:.2f} GB), {flops / k_ms / 1e9:.2f} TFLOP/s")
+    return k_ms, p_ms, o_ms, y_ms
+
+
 def kernel_phase(device, peaks):
     """The fused SIREN kernel against its plain version, then timed at the
     main path's row count. Returns (max|d|, ms, plain_ms, bound_ms,
     bound_by), times summed over the three nets of one window."""
     import torch
-    from stif_tpu_torch.ops import siren_apply_fused, siren_apply_fused_plain
     from stif_tpu_torch.ops.siren_fused import blocks_per_sm, launch_plan
 
     rng = np.random.default_rng(0)
@@ -232,16 +281,7 @@ def kernel_phase(device, peaks):
         worst = max(worst, layout_checks(name, ws, bs, device))
         xs = [torch.rand(rows, c, device=device) * 2 - 1 for c in splits]
         worst = max(worst, check(name, xs, ws, bs))
-        k_ms = cuda_ms(lambda: siren_apply_fused(xs, ws, bs), 5)
-        p_ms = cuda_ms(lambda: siren_apply_fused_plain(xs, ws, bs), 3)
-        flops = 2 * rows * sum(a * b for a, b in zip(widths, widths[1:]))
-        n_params = sum(w.numel() + b.numel() for w, b in zip(ws, bs))
-        nbytes = 4 * (rows * (widths[0] + widths[-1]) + n_params)
-        o_ms, y_ms = 1e3 * flops / peaks[0], 1e3 * nbytes / peaks[1]
-        b_ms = max(o_ms, y_ms)
-        log(f"  {name} Q={rows}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-            f"bound {b_ms:.3f} ms ({flops / 1e9:.1f} GFLOP, "
-            f"{nbytes / 1e9:.2f} GB), {flops / k_ms / 1e9:.2f} TFLOP/s")
+        k_ms, p_ms, o_ms, y_ms = time_net(name, xs, ws, bs, peaks)
         ms, plain_ms = ms + k_ms, plain_ms + p_ms
         ops_ms, bytes_ms = ops_ms + o_ms, bytes_ms + y_ms
         del xs
@@ -692,6 +732,257 @@ def slice_phase(card: str, device) -> int:
     return count.total
 
 
+# ----------------------------------------------------------------- phase 7
+
+ZOO_CFG = dict(nf=64, groups=8, front_RBs=5, back_RBs=40)  # full width
+
+
+def zoo_fields(name, nt, Q, device):
+    """One zoo net's fields laid out as its model hands them over, for nt
+    query times of Q rows each: the time-independent base field broadcast
+    over the time axis (row period Q), contiguous gathers, the time
+    column."""
+    import torch
+
+    def r(*shape):
+        return torch.rand(*shape, device=device) * 2 - 1
+
+    splits = ZOO_NETS[name][0]
+    if name == "train_feat":
+        return [r(Q, 200).expand(nt, Q, 200)]
+    if name == "train_flow":
+        return [r(nt, Q, 128), r(Q, 200).expand(nt, Q, 200), r(nt, Q, 1)]
+    if name in ("s_flow", "noflow_feat"):
+        return [r(Q, 200).expand(nt, Q, 200), r(nt, Q, 1)]
+    return [r(nt, Q, c) for c in splits]  # stage D: separate gathers
+
+
+def zoo_kernel_phase(device, peaks) -> float:
+    """Phase 7a; returns the largest max|kernel - plain|."""
+    import torch
+    from stif_tpu_torch.ops.siren_fused import blocks_per_sm, launch_plan
+
+    rng = np.random.default_rng(7)
+    torch.manual_seed(7)
+    Q = LR_HW[0] * SCALE * LR_HW[1] * SCALE
+    worst = 0.0
+    total = {"kernel": 0.0, "plain": 0.0, "bound": 0.0}
+    for name, (splits, widths) in ZOO_NETS.items():
+        ws, bs = siren_net(rng, widths, device)
+        plan = launch_plan(splits, widths)
+        log(f"  {name} plan: tile widths {plan.pitch}, K-chunks {plan.kc}, "
+            f"{len(plan.chunks)} first-layer chunks, {plan.smem_bytes} B "
+            f"shared, {blocks_per_sm(plan)} blocks per SM")
+        for nt, q in ((1, 1), (3, 63), (3, 65), (2, 4097)):
+            xs = zoo_fields(name, nt, q, device)
+            worst = max(worst, check(f"{name} nt={nt}", xs, ws, bs))
+        xs = zoo_fields(name, N_TIMES, Q, device)
+        worst = max(worst, check(name, xs, ws, bs))
+        k_ms, p_ms, o_ms, y_ms = time_net(name, xs, ws, bs, peaks)
+        total["kernel"] += k_ms
+        total["plain"] += p_ms
+        total["bound"] += max(o_ms, y_ms)
+        del xs
+        torch.cuda.empty_cache()
+    log(f"  six zoo nets: kernel {total['kernel']:.3f} ms, plain "
+        f"{total['plain']:.3f} ms, bound {total['bound']:.3f} ms")
+    return worst
+
+
+def seeded(build, seed: int):
+    """``build()`` with its constructor's own initial distributions drawn
+    under ``seed`` (the global generator is put back afterwards), then every
+    DCN offset conv, which starts at zero, redrawn from a ``torch.Generator``
+    of the same seed to offsets of about a pixel, so that every deformable
+    conv deforms. The same seed gives the same weights."""
+    import torch
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = build()
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "conv_offset_mask" in name:
+                fan_in = p[0].numel() if p.dim() == 4 else 1
+                u = torch.rand(p.shape, generator=gen) * 2 - 1
+                p.copy_(u / fan_in ** 0.5)
+    return model.eval()
+
+
+def on_card_and_cpu(model, device):
+    """(the model on the card, an identical copy on the CPU)."""
+    import copy
+
+    return copy.deepcopy(model).to(device), model
+
+
+def zoo_phase(card: str, device) -> int:
+    """Phases 7b-7e. Returns the SIREN launches of every path driven."""
+    import tempfile
+
+    import torch
+    from stif_tpu_torch.data.synthetic import render_eval_folders
+    from stif_tpu_torch.models import (LunaTokisNoFlow, LunaTokisS,
+                                       LunaTokisTrain, LunaTokisZSM, TMNet)
+    from stif_tpu_torch.models.ablations import _PRESETS
+    from stif_tpu_torch.models.factory import define_g
+    from stif_tpu_torch.runtime import InferencePipeline
+    from stif_tpu_torch.runtime.eval import eval_adobe_tmnet, eval_vid4_tmnet
+
+    count = Launches()
+    rng = np.random.default_rng(0)
+    frames = rng.random((4,) + LR_HW + (3,)).astype(np.float32)
+    small = rng.random((4, 16, 16, 3)).astype(np.float32)
+    times = [i / N_TIMES for i in range(N_TIMES)]
+    HH, WW = LR_HW[0] * SCALE, LR_HW[1] * SCALE
+    x = torch.from_numpy(frames[None, :2]).to(device)
+    xs = torch.from_numpy(small[None, :2])
+    t = torch.tensor(times, device=device)
+
+    def finite(what, out, shape):
+        if tuple(out.shape) != shape or not np.isfinite(out).all():
+            raise AssertionError(f"{what}: shape {tuple(out.shape)}, "
+                                 f"expected {shape}, or not finite")
+
+    log("[7b] LunaTokisTrain / S / NoFlow at full width, LR "
+        f"{LR_HW[0]}x{LR_HW[1]} pair, {N_TIMES} times, x{SCALE}")
+    for seed, (cls, expect) in enumerate(((LunaTokisTrain, 3),
+                                          (LunaTokisS, 2),
+                                          (LunaTokisNoFlow, 1))):
+        name = cls.__name__
+        model, cpu_model = on_card_and_cpu(
+            seeded(lambda: cls(**ZOO_CFG), 70 + seed), device)
+        with torch.inference_mode():
+            out = count.run(name, expect,
+                            lambda: model(x, t).cpu().numpy())
+            finite(name, out, (N_TIMES, 1, HH, WW, 3))
+            runs, peak = count.run(
+                f"{name}, timed", TIMED_RUNS * expect,
+                lambda: timed(lambda: model(x, t).cpu().numpy()))
+            set_fused(model, False)
+            t0 = time.perf_counter()
+            plain = count.run(f"{name}, plain SIREN", 0,
+                              lambda: model(x, t).cpu().numpy())
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            set_fused(model, True)
+            gpu = count.run(f"{name}, 16x16", expect,
+                            lambda: model(xs.to(device), t[:2]).cpu().numpy())
+            ref = cpu_model(xs, t[:2].cpu()).numpy()
+        log(f"  {name} {out.shape}, finite, {expect} launches: "
+            f"{fmt_runs(runs)}, peak {peak:.2f} GiB; plain-SIREN forward "
+            f"{plain_ms:.1f} ms [{card}]")
+        d = max_abs(out, plain)
+        require(f"{name}: kernel forward vs plain-SIREN forward, max|d|", d,
+                d <= WINDOW_BAR)
+        d = max_abs(gpu, ref)
+        require(f"{name}: 16x16 window, GPU (kernel) vs CPU, max|d|", d,
+                d <= WINDOW_BAR)
+        del model, cpu_model, out, plain
+        torch.cuda.empty_cache()
+
+    log("[7c] LunaTokisZSM and TMNet at full width")
+    model, cpu_model = on_card_and_cpu(
+        seeded(lambda: LunaTokisZSM(**ZOO_CFG), 73), device)
+    with torch.inference_mode():
+        out = count.run("LunaTokisZSM", 0, lambda: model(x).cpu().numpy())
+        finite("LunaTokisZSM", out, (1, 3, HH, WW, 3))
+        runs, peak = count.run(
+            "LunaTokisZSM, timed", 0,
+            lambda: timed(lambda: model(x).cpu().numpy()))
+        d = max_abs(model(xs.to(device)).cpu().numpy(),
+                    cpu_model(xs).numpy())
+    log(f"  LunaTokisZSM {out.shape}, finite, 0 launches: {fmt_runs(runs)}, "
+        f"peak {peak:.2f} GiB [{card}]")
+    require("LunaTokisZSM: 16x16 pair, GPU vs CPU, max|d|", d,
+            d <= WINDOW_BAR)
+    del model, cpu_model, out
+    torch.cuda.empty_cache()
+
+    tm_cfg = dict(ZOO_CFG, back_RBs=10)  # TMNet's own depth
+    tmnet = seeded(lambda: TMNet(**tm_cfg), 74)
+    pipe = InferencePipeline(tmnet, device=device)
+    tm_times = [i / 6 for i in range(1, 6)]
+    out = count.run("render_window_tmnet", 0,
+                    lambda: pipe.render_window_tmnet(frames, tm_times))
+    finite("TMNet, 4 frames and 5 times", out, (19, HH, WW, 3))
+    runs, peak = count.run(
+        "render_window_tmnet, timed", 0,
+        lambda: timed(lambda: pipe.render_window_tmnet(frames, tm_times)))
+    log(f"  TMNet render_window_tmnet, 4 frames x 5 times -> {out.shape}, "
+        f"finite, 0 launches: {fmt_runs(runs)}, peak {peak:.2f} GiB [{card}]")
+    x4 = torch.from_numpy(frames[None]).to(device)
+    with torch.inference_mode():
+        no_t = count.run("TMNet without times", 0,
+                         lambda: tmnet(x4).cpu().numpy())
+        finite("TMNet without times", no_t, (1, 7, HH, WW, 3))
+        runs, peak = count.run(
+            "TMNet without times, timed", 0,
+            lambda: timed(lambda: tmnet(x4).cpu().numpy()))
+    log(f"  TMNet without times, 4 frames -> {no_t.shape}, finite: "
+        f"{fmt_runs(runs)}, peak {peak:.2f} GiB [{card}]")
+    gpu = pipe.render_window_tmnet(small, tm_times[:2])
+    cpu_pipe = InferencePipeline(seeded(lambda: TMNet(**tm_cfg), 74),
+                                 device="cpu")
+    d = max_abs(gpu, cpu_pipe.render_window_tmnet(small, tm_times[:2]))
+    require("TMNet: 16x16 window (4 frames, 2 times), GPU vs CPU, max|d|", d,
+            d <= WINDOW_BAR)
+    del out, no_t, x4
+
+    log("[7d] every LIIF_<preset> through define_g (full width, 5 + 10 "
+        "blocks, LR 32x48 pair, 2 times)")
+    mid = torch.from_numpy(frames[None, :2, :32, :48]).to(device)
+    for k, preset in enumerate(sorted(_PRESETS)):
+        opt = {"network_G": dict(which_model_G=f"LIIF_{preset}", nf=64,
+                                 nframes=6, groups=8, front_RBs=5,
+                                 back_RBs=10)}
+        model, cpu_model = on_card_and_cpu(
+            seeded(lambda: define_g(opt), 80 + k), device)
+        with torch.inference_mode():
+            out = count.run(f"LIIF_{preset}", 0,
+                            lambda: model(mid, t[:2]).cpu().numpy())
+            finite(f"LIIF_{preset}", out, (2, 1, 128, 192, 3))
+            d = max_abs(model(xs.to(device), t[:2]).cpu().numpy(),
+                        cpu_model(xs, t[:2].cpu()).numpy())
+        require(f"LIIF_{preset}: {out.shape} finite, 0 launches; 16x16 "
+                "window, GPU vs CPU, max|d|", d, d <= WINDOW_BAR)
+        del model, cpu_model
+    model, cpu_model = on_card_and_cpu(
+        seeded(lambda: define_g({"network_G": dict(
+            which_model_G="LIIF_test4", nf=64, groups=8, front_RBs=5,
+            back_RBs=10)}), 90), device)
+    x16 = torch.from_numpy(small[None])
+    with torch.inference_mode():
+        out = count.run("decode_mulfeat", 0, lambda: model(
+            x16.to(device), None, mulfeat=True).cpu().numpy())
+        finite("LIIF_test4 decode_mulfeat", out, (7, 1, 64, 64, 3))
+        d = max_abs(out, cpu_model(x16, None, mulfeat=True).numpy())
+    require("LIIF_test4 decode_mulfeat, 4 frames -> 7: GPU vs CPU, max|d|",
+            d, d <= WINDOW_BAR)
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+    log("[7e] eval_adobe_tmnet and eval_vid4_tmnet on rendered folders")
+    with tempfile.TemporaryDirectory() as tmp:
+        adobe = render_eval_folders(f"{tmp}/adobe", n_scenes=1, n_frames=19,
+                                    size=(128, 192), seed0=880_000)
+        vid4 = render_eval_folders(f"{tmp}/vid4", n_scenes=1, n_frames=9,
+                                   size=(64, 96), seed0=881_000)
+        for what, res in (
+                ("eval_adobe_tmnet", count.run(
+                    "eval_adobe_tmnet", 0,
+                    lambda: eval_adobe_tmnet(pipe, adobe))),
+                ("eval_vid4_tmnet", count.run(
+                    "eval_vid4_tmnet", 0,
+                    lambda: eval_vid4_tmnet(pipe, vid4)))):
+            vals = [res.mean_psnr, res.mean_ssim]
+            log(f"  {what} (random weights): PSNR {vals[0]:.3f} dB, SSIM "
+                f"{vals[1]:.4f}, {res.avg_time_s:.2f} s")
+            if not (res.psnr and np.isfinite(vals).all()):
+                raise AssertionError(f"{what}: {vals}")
+    return count.total
+
+
 def main() -> int:
     import torch
 
@@ -732,6 +1023,8 @@ def main() -> int:
     if "--kernels" in sys.argv[1:]:
         log("[5a] kernel vs plain at the chunked stages' shapes")
         err = max(err, slice_kernel_checks(device))
+        log("[7a] kernel vs plain at the model zoo's six nets, then timed")
+        err = max(err, zoo_kernel_phase(device, peaks))
         log(f"    kernels: max|d| {err:.3e}, {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms [{card}]")
         return 0
@@ -742,6 +1035,10 @@ def main() -> int:
     log("[5a] kernel vs plain at the chunked stages' shapes")
     err = max(err, slice_kernel_checks(device))
     launches += slice_phase(card, device)
+
+    log("[7a] kernel vs plain at the model zoo's six nets, then timed")
+    err = max(err, zoo_kernel_phase(device, peaks))
+    launches += zoo_phase(card, device)
 
     kernels = {"kernels": [{
         "name": "siren_fused",
@@ -757,8 +1054,8 @@ def main() -> int:
         "library_ms": None,
     }]}
     log(f"[6] done in {time.perf_counter() - t_start:.1f} s; kernel times "
-        "are the sum of the three nets of one window, launches the sum over "
-        "every path driven")
+        "are the sum of the deployed model's three nets of one window, "
+        "launches the sum over every path driven")
     log(card)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -10,15 +10,28 @@ checkpoint loads with ``load_state_dict(strict=True)``. JAX parameter trees
   ``forward_net/step/cell/conv`` -> ``forward_net.cell_list.0.conv``;
   ``forward_net/step/pcd_{h,c}`` -> ``forward_net.pcd_{h,c}``;
   SIREN ``{imnet}/layer{i}`` -> ``{imnet}.net.{i}.linear``, the last layer
-    ``{imnet}.net.{last}``.
+    ``{imnet}.net.{last}``;
+  names that mirror the reference's ``nn.Sequential`` containers (TMNet's
+    ``t_process_0``, ``layersFusion_6``, ...) -> ``t_process.0``, ...;
+  the ``MLP``'s ``Dense_{i}`` -> ``layers.{2i}`` (Linear / ReLU pairs).
+
+Every other module name (the variants' ``encoder`` prefix, the ablations'
+``final_conv0``) is kept as it is.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+
+_SEQ_RE = re.compile(
+    r"^(t_process|f_process|layersAtBOffset|layersCtBOffset|layersFusion)"
+    r"_(\d+)$")
+_DENSE_RE = re.compile(r"^Dense_(\d+)$")
 
 
 def _flatten(tree, prefix=()):
@@ -41,11 +54,10 @@ def _imnet_depths(paths) -> Dict[str, int]:
     return depths
 
 
-def _key(path: Tuple[str, ...], depths: Dict[str, int]) -> Tuple[str, str]:
-    """(state-dict key, kind) of a JAX parameter path; kind in
-    {"conv", "linear", "bias"} selects the layout transform."""
+def _key(path: Tuple[str, ...], depths: Dict[str, int]) -> str:
+    """The state-dict key of a JAX parameter path."""
     *mods, leaf = path
-    out, kind, i = [], None, 0
+    out, i = [], 0
     while i < len(mods):
         m = mods[i]
         if m.startswith("block"):
@@ -63,20 +75,24 @@ def _key(path: Tuple[str, ...], depths: Dict[str, int]) -> Tuple[str, str]:
             out += [m, "net", str(li)]
             if li != depths[m] - 1:
                 out.append("linear")
-            kind = "linear"
             i += 1
+        elif _SEQ_RE.match(m):
+            out += _SEQ_RE.match(m).groups()
+        elif _DENSE_RE.match(m):
+            out += ["layers", str(2 * int(_DENSE_RE.match(m).group(1)))]
         else:
             out.append(m)
         i += 1
-    if leaf in ("kernel", "weight"):
-        return ".".join(out + ["weight"]), kind or "conv"
-    return ".".join(out + ["bias"]), "bias"
+    return ".".join(out + ["weight" if leaf in ("kernel", "weight")
+                           else "bias"])
 
 
-def _to_torch_layout(v: np.ndarray, kind: str) -> np.ndarray:
-    if kind == "conv" and v.ndim == 4:
-        return v.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-    if kind == "linear" and v.ndim == 2:
+def _to_torch_layout(v: np.ndarray) -> np.ndarray:
+    """Conv kernels HWIO -> OIHW, dense kernels (in, out) -> (out, in);
+    biases as they are."""
+    if v.ndim == 4:
+        return v.transpose(3, 2, 0, 1)
+    if v.ndim == 2:
         return v.T
     return v
 
@@ -93,12 +109,10 @@ def jax_params_to_state_dict(params) -> Dict[str, torch.Tensor]:
         if "blocks" in path:  # scanned trunk: one stacked block axis
             j = path.index("blocks")
             for b in range(v.shape[0]):
-                key, kind = _key(path[:j] + (f"block{b}",) + path[j + 2:],
-                                 depths)
-                state[key] = _to_torch_layout(v[b], kind)
+                key = _key(path[:j] + (f"block{b}",) + path[j + 2:], depths)
+                state[key] = _to_torch_layout(v[b])
         else:
-            key, kind = _key(path, depths)
-            state[key] = _to_torch_layout(v, kind)
+            state[_key(path, depths)] = _to_torch_layout(v)
     return {k: torch.from_numpy(np.ascontiguousarray(v))
             for k, v in state.items()}
 

@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from stif_tpu_torch.models.registry import register_model
 from stif_tpu_torch.nn.blocks import Conv, ResidualTrunk, lrelu
 from stif_tpu_torch.nn.convlstm import BiDeformableConvLSTM
 from stif_tpu_torch.nn.pcd import PCDAlign
@@ -53,6 +54,51 @@ def _times_nb(times, B: int, device) -> torch.Tensor:
     return t.reshape(-1, 1).expand(t.numel(), B)
 
 
+def add_encoder(m: nn.Module, nf: int, groups: int, front_RBs: int,
+                back_RBs: int, gather_dtype=None) -> None:
+    """Give ``m`` the encoder's submodules under the reference schema's
+    names. ``LunaTokis`` holds them itself; the variants hold them in an
+    ``encoder`` submodule, as the JAX trees do."""
+    m.conv_first = Conv(3, nf, 3, 1, 1)
+    m.feature_extraction = ResidualTrunk(nf, front_RBs)
+    m.fea_L2_conv1 = Conv(nf, nf, 3, 2, 1)
+    m.fea_L2_conv2 = Conv(nf, nf, 3, 1, 1)
+    m.fea_L3_conv1 = Conv(nf, nf, 3, 2, 1)
+    m.fea_L3_conv2 = Conv(nf, nf, 3, 1, 1)
+    m.pcd_align = PCDAlign(nf, groups, gather_dtype)
+    m.fusion = Conv(2 * nf, nf, 1, 1, 0)
+    m.ConvBLSTM = BiDeformableConvLSTM(nf, groups, gather_dtype)
+    m.recon_trunk = ResidualTrunk(nf, back_RBs)
+
+
+def encode(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The encoder (``gen_feat``) over the submodules ``add_encoder`` gave
+    ``m``: x (B, N, H, W, 3) -> features (B, 2N-1, H, W, nf)."""
+    B, N, H, W, C = x.shape
+    l1 = lrelu(m.conv_first(x.reshape(B * N, H, W, C)))
+    l1 = m.feature_extraction(l1)
+    l2 = lrelu(m.fea_L2_conv2(lrelu(m.fea_L2_conv1(l1))))
+    l3 = lrelu(m.fea_L3_conv2(lrelu(m.fea_L3_conv1(l2))))
+    l1 = l1.reshape(B, N, H, W, -1)
+    l2 = l2.reshape(B, N, H // 2, W // 2, -1)
+    l3 = l3.reshape(B, N, H // 4, W // 4, -1)
+
+    seq = []
+    for idx in range(N - 1):
+        fea1 = [l1[:, idx], l2[:, idx], l3[:, idx]]
+        fea2 = [l1[:, idx + 1], l2[:, idx + 1], l3[:, idx + 1]]
+        fused = m.fusion(m.pcd_align(fea1, fea2))
+        if idx == 0:
+            seq.append(fea1[0])
+        seq.append(fused)
+        seq.append(fea2[0])
+    feats = m.ConvBLSTM(torch.stack(seq, 1))  # (B, 2N-1, H, W, nf)
+    B2, T, Hf, Wf, Cf = feats.shape
+    out = m.recon_trunk(feats.reshape(B2 * T, Hf, Wf, Cf))
+    return out.reshape(B2, T, Hf, Wf, Cf)
+
+
+@register_model("LunaTokis")
 class LunaTokis(nn.Module):
     """Constructor knobs beyond the architecture (all default to the fp32
     reference semantics; none changes the parameter schema):
@@ -95,16 +141,7 @@ class LunaTokis(nn.Module):
         self.stagec_dedup = stagec_dedup
         self.stagec_nearest = stagec_nearest
         self.stagec_dtype = stagec_dtype
-        self.conv_first = Conv(3, nf, 3, 1, 1)
-        self.feature_extraction = ResidualTrunk(nf, front_RBs)
-        self.fea_L2_conv1 = Conv(nf, nf, 3, 2, 1)
-        self.fea_L2_conv2 = Conv(nf, nf, 3, 1, 1)
-        self.fea_L3_conv1 = Conv(nf, nf, 3, 2, 1)
-        self.fea_L3_conv2 = Conv(nf, nf, 3, 1, 1)
-        self.pcd_align = PCDAlign(nf, groups, gather_dtype)
-        self.fusion = Conv(2 * nf, nf, 1, 1, 0)
-        self.ConvBLSTM = BiDeformableConvLSTM(nf, groups, gather_dtype)
-        self.recon_trunk = ResidualTrunk(nf, back_RBs)
+        add_encoder(self, nf, groups, front_RBs, back_RBs, gather_dtype)
         # legacy ZSM x4 pixel-shuffle head (part of the checkpoint schema)
         self.upconv1 = Conv(nf, nf * 4, 3, 1, 1)
         self.upconv2 = Conv(nf, 64 * 4, 3, 1, 1)
@@ -123,28 +160,7 @@ class LunaTokis(nn.Module):
 
     def gen_feat(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, N, H, W, 3) -> features (B, 2N-1, H, W, nf)."""
-        B, N, H, W, C = x.shape
-        l1 = lrelu(self.conv_first(x.reshape(B * N, H, W, C)))
-        l1 = self.feature_extraction(l1)
-        l2 = lrelu(self.fea_L2_conv2(lrelu(self.fea_L2_conv1(l1))))
-        l3 = lrelu(self.fea_L3_conv2(lrelu(self.fea_L3_conv1(l2))))
-        l1 = l1.reshape(B, N, H, W, -1)
-        l2 = l2.reshape(B, N, H // 2, W // 2, -1)
-        l3 = l3.reshape(B, N, H // 4, W // 4, -1)
-
-        seq = []
-        for idx in range(N - 1):
-            fea1 = [l1[:, idx], l2[:, idx], l3[:, idx]]
-            fea2 = [l1[:, idx + 1], l2[:, idx + 1], l3[:, idx + 1]]
-            fused = self.fusion(self.pcd_align(fea1, fea2))
-            if idx == 0:
-                seq.append(fea1[0])
-            seq.append(fused)
-            seq.append(fea2[0])
-        feats = self.ConvBLSTM(torch.stack(seq, 1))  # (B, 2N-1, H, W, nf)
-        B2, T, Hf, Wf, Cf = feats.shape
-        out = self.recon_trunk(feats.reshape(B2 * T, Hf, Wf, Cf))
-        return out.reshape(B2, T, Hf, Wf, Cf)
+        return encode(self, x)
 
     # ---------------------------------------------------------------- decoder
 

@@ -7,6 +7,7 @@ from stif_tpu_torch.nn.convlstm import (
     DeformableConvLSTM,
 )
 from stif_tpu_torch.nn.dcn import DCNSep
+from stif_tpu_torch.nn.mlp import MLP
 from stif_tpu_torch.nn.pcd import EasyPCD, PCDAlign
 from stif_tpu_torch.nn.siren import Siren
 
@@ -17,6 +18,7 @@ __all__ = [
     "DCNSep",
     "DeformableConvLSTM",
     "EasyPCD",
+    "MLP",
     "PCDAlign",
     "ResidualBlockNoBN",
     "ResidualTrunk",

@@ -24,9 +24,10 @@ class Conv(nn.Conv2d):
     convention), so strided convs give torch's output sizes."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 3, stride: int = 1, padding: int = 1):
+                 kernel_size: int = 3, stride: int = 1, padding: int = 1,
+                 bias: bool = True):
         super().__init__(in_channels, out_channels, kernel_size, stride,
-                         padding)
+                         padding, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)

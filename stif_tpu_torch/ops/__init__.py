@@ -2,6 +2,7 @@
 
 from stif_tpu_torch.ops.coords import make_coord, make_coord_demo
 from stif_tpu_torch.ops.deform_conv import deform_conv2d, split_offset_mask
+from stif_tpu_torch.ops.fold import fold3x3
 from stif_tpu_torch.ops.grid_sample import grid_sample
 from stif_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from stif_tpu_torch.ops.resize import imresize, imresize_to, resize_bilinear
@@ -13,6 +14,7 @@ from stif_tpu_torch.ops.warp import warp_grid
 
 __all__ = [
     "deform_conv2d",
+    "fold3x3",
     "grid_sample",
     "imresize",
     "imresize_to",

@@ -1,7 +1,8 @@
 """Batch evaluation harnesses (port of ``stif_tpu/runtime/eval.py``).
 
-Four protocols, each over folders of ground-truth HR frames, each needing
-only ``pipeline.render_window``:
+Six protocols, each over folders of ground-truth HR frames; the first four
+need only ``pipeline.render_window``, the TMNet ones
+``pipeline.render_window_tmnet``:
 
 - ``eval_space_time_sr``: the Vid4 x4 space-time SR protocol: every 2nd frame
   downscaled as LR input, query times t in {0.5, 0}, Y-channel
@@ -9,12 +10,15 @@ only ``pipeline.render_window``:
 - ``eval_adobe_4x`` / ``eval_adobe_liif4x``: the Adobe x16-spatial LIIF
   protocols over frame pairs (i, i+4);
 - ``eval_temporal_x8``: the Adobe/GoPro x8 temporal protocol with a per-time
-  PSNR breakdown.
+  PSNR breakdown;
+- ``eval_adobe_tmnet`` / ``eval_vid4_tmnet``: the Adobe and Vid4 protocols
+  over 4-frame TMNet windows, whose interleaved fixed-x4 output is scored
+  where it lands on ground-truth frames.
 
 Each protocol scores one clip in a private helper that takes the frames as an
 array (T, H, W, 3), so in-memory clips can be scored without reading files.
 The LR frames are made on the host with this package's MATLAB-bicubic
-``imresize`` on CPU tensors. The two TMNet protocols are not ported yet.
+``imresize`` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -80,15 +84,24 @@ def _folders(gt_root: str, folders: Optional[Sequence[str]]):
     )
 
 
-def _crop_and_degrade(gt: np.ndarray, multiple: int, downscale: float):
-    """Crop (T, H, W, 3) so H and W are multiples of ``multiple``; returns
-    (gt, lr) with lr the MATLAB-bicubic ``downscale`` of gt, on the host."""
+def _crop(gt: np.ndarray, multiple: int) -> np.ndarray:
+    """Crop (T, H, W, 3) so H and W are multiples of ``multiple``."""
     H = gt.shape[1] - gt.shape[1] % multiple
     W = gt.shape[2] - gt.shape[2] % multiple
-    gt = gt[:, :H, :W]
-    lr = imresize(torch.from_numpy(np.ascontiguousarray(gt, np.float32)),
-                  downscale).numpy()
-    return gt, lr
+    return gt[:, :H, :W]
+
+
+def _host_imresize(frames: np.ndarray, scale: float) -> np.ndarray:
+    """MATLAB-bicubic resize of (T, H, W, 3) frames on the host."""
+    return imresize(torch.from_numpy(np.ascontiguousarray(
+        frames, np.float32)), scale).numpy()
+
+
+def _crop_and_degrade(gt: np.ndarray, multiple: int, downscale: float):
+    """(gt, lr): gt cropped to multiples of ``multiple``, lr its
+    MATLAB-bicubic ``downscale``."""
+    gt = _crop(gt, multiple)
+    return gt, _host_imresize(gt, downscale)
 
 
 def append_logfile(logfile: str, epoch_id, iter_id, cost_s: float,
@@ -244,6 +257,89 @@ def eval_adobe_liif4x(pipeline, gt_root: str,
                          y_channel)
     res.mid_psnr = res.mean_psnr
     res.mid_ssim = res.mean_ssim
+    if logfile:
+        append_logfile(logfile, epoch_id, iter_id, res.avg_time_s,
+                       res.mean_psnr, res.mean_ssim)
+    return res
+
+
+def _score_adobe_tmnet(pipeline, gt_full: np.ndarray):
+    """One clip under the Adobe TMNet protocol. Returns (output index, psnr,
+    ssim) per scored frame."""
+    gt_full = _crop(gt_full, 32)
+    lr = _host_imresize(gt_full, 1 / 8)
+    gt = _host_imresize(gt_full, 1 / 2)
+    times = [i / 6 for i in range(1, 6)]
+    scores = []
+    for i in range(0, gt.shape[0] - 18, 18):
+        out = pipeline.render_window_tmnet(
+            np.stack([lr[i], lr[i + 6], lr[i + 12], lr[i + 18]]), times)
+        for j in range(min(out.shape[0] - 1, 18)):
+            scores.append((j,) + _metric_pair(np.clip(out[j], 0, 1),
+                                              gt[i + j], y_channel=False))
+    return scores
+
+
+def eval_adobe_tmnet(pipeline, gt_root: str,
+                     folders: Optional[Sequence[str]] = None,
+                     logfile: Optional[str] = None,
+                     epoch_id: int = 0, iter_id: int = 0) -> EvalResult:
+    """``test_metric_adobe_tmnet``: 4-frame TMNet windows (i, i+6, i+12,
+    i+18) downscaled 1/8; GT = the 18 frames i..i+17 at 1/2 scale (x4
+    model); interior times {1/6..5/6} per pair, so the interleaved output
+    covers every GT frame; full-RGB metrics, "MID" = output index 4, window
+    stride 18."""
+    res = EvalResult()
+    mid = []
+    t_start = time.time()
+    for name in _folders(gt_root, folders):
+        scores = _score_adobe_tmnet(
+            pipeline, _load_frames(os.path.join(gt_root, name)))
+        mid += [(p, s) for j, p, s in scores if j == 4]
+        res.psnr[name] = float(np.mean([p for _, p, _ in scores]))
+        res.ssim[name] = float(np.mean([s for _, _, s in scores]))
+    res.mid_psnr = float(np.mean([p for p, _ in mid])) if mid else 0.0
+    res.mid_ssim = float(np.mean([s for _, s in mid])) if mid else 0.0
+    res.avg_time_s = time.time() - t_start
+    if logfile:
+        append_logfile(logfile, epoch_id, iter_id, res.avg_time_s,
+                       res.mean_psnr, res.mean_ssim)
+    return res
+
+
+def _score_vid4_tmnet(pipeline, gt: np.ndarray):
+    """One clip under the Vid4 TMNet protocol. Returns (psnr, ssim) per
+    scored frame."""
+    gt, lr = _crop_and_degrade(gt, 16, 0.25)
+    inputs = lr[::2]
+    times = [i / 8 for i in range(1, 8)]
+    scores = []
+    for i in range(inputs.shape[0] - 3):
+        out = pipeline.render_window_tmnet(inputs[i:i + 4], times)
+        for j in range(0, out.shape[0] - 1, 4):
+            gt_idx = 2 * i + j // 4
+            if gt_idx < gt.shape[0]:
+                scores.append(_metric_pair(np.clip(out[j], 0, 1), gt[gt_idx],
+                                           y_channel=True))
+    return scores
+
+
+def eval_vid4_tmnet(pipeline, gt_root: str,
+                    folders: Optional[Sequence[str]] = None,
+                    logfile: Optional[str] = None,
+                    epoch_id: int = 0, iter_id: int = 0) -> EvalResult:
+    """``test_metric_full_tmnet``: Vid4 with 4-frame TMNet windows of every
+    2nd LR frame, times {1/8..7/8}; of the interleaved outputs only j in
+    {0, 4, 8, ...} land on GT frames (2i + j/4); Y-channel metrics; window
+    stride 1."""
+    res = EvalResult()
+    t_start = time.time()
+    for name in _folders(gt_root, folders):
+        scores = _score_vid4_tmnet(
+            pipeline, _load_frames(os.path.join(gt_root, name)))
+        res.psnr[name] = float(np.mean([p for p, _ in scores]))
+        res.ssim[name] = float(np.mean([s for _, s in scores]))
+    res.avg_time_s = time.time() - t_start
     if logfile:
         append_logfile(logfile, epoch_id, iter_id, res.avg_time_s,
                        res.mean_psnr, res.mean_ssim)

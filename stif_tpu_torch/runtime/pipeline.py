@@ -74,7 +74,10 @@ def window_plan(skip: bool, n_out: int, len_in: int) -> List[List[List[int]]]:
 
 class InferencePipeline:
     """Renders LR frame windows with a ``LunaTokis`` on one device (CUDA
-    unless ``device`` says otherwise)."""
+    unless ``device`` says otherwise). ``render_window`` passes ``test=`` and
+    ``local_ensemble=`` to the model, so it serves ``LunaTokis`` only, as in
+    the JAX package; ``render_window_tmnet`` serves a ``TMNet``, and the
+    other variants are called directly."""
 
     def __init__(self, model: torch.nn.Module, scale: int = 4,
                  bucket: int = 16, device=None, test_mode: bool = False,
@@ -136,6 +139,20 @@ class InferencePipeline:
                 o = o[:, :, ::-1]
             acc = o if acc is None else acc + o
         return acc / 8.0
+
+    def render_window_tmnet(self, frames: np.ndarray,
+                            times: Sequence[float]) -> np.ndarray:
+        """TMNet window render: frames (N, H, W, 3), the times enter as the
+        (1, t_N) modulation; the output is the fixed-x4 interleaved sequence
+        (N + (N-1) * t_N, 4H, 4W, 3)."""
+        x, (h, w) = pad_to_multiple(np.asarray(frames, np.float32), 4,
+                                    self.bucket)
+        with torch.inference_mode():
+            xt = torch.from_numpy(x[None]).to(self.device)
+            t = torch.as_tensor(np.asarray(times, np.float32)[None],
+                                device=self.device)
+            out = self.model(xt, t)[0, :, :h * 4, :w * 4].cpu().numpy()
+        return out
 
     def render_pairs(self, pairs: np.ndarray, times: Sequence[float],
                      chunk_size: int = 65536) -> np.ndarray:

@@ -181,6 +181,105 @@ def test_kernel_matches_plain_chunk_layouts(cuda, rng, name, B, Cq):
     assert (got - want).abs().max().item() <= 1e-4
 
 
+# the model zoo's six nets: field splits, widths after the input
+ZOO_NETS = {
+    "train_feat": ([200], [64, 64, 64, 256, 128]),
+    "train_flow": ([128, 200, 1], [64, 64, 64, 256, 4]),
+    "train_encode": ([128, 198, 128, 198], [64, 64, 64, 256, 256, 27]),
+    "s_flow": ([200, 1], [64, 64, 256, 4]),
+    "s_encode": ([192, 192, 6, 6], [64, 64, 256, 256, 3]),
+    "noflow_feat": ([200, 1], [64, 64, 256, 256, 256, 3]),
+}
+
+
+def _zoo_fields(name, nt, Q, device):
+    """One zoo net's fields as its model hands them over: the base field
+    broadcast over the times (row period Q), contiguous gathers, the time
+    column."""
+    def r(*shape):
+        return torch.rand(*shape, device=device) * 2 - 1
+
+    if name == "train_feat":
+        return [r(Q, 200).expand(nt, Q, 200)]
+    if name == "train_flow":
+        return [r(nt, Q, 128), r(Q, 200).expand(nt, Q, 200), r(nt, Q, 1)]
+    if name in ("s_flow", "noflow_feat"):
+        return [r(Q, 200).expand(nt, Q, 200), r(nt, Q, 1)]
+    return [r(nt, Q, c) for c in ZOO_NETS[name][0]]
+
+
+@pytest.mark.parametrize("name", list(ZOO_NETS))
+@pytest.mark.parametrize("nt,Q", [(1, 1), (3, 63), (3, 65), (2, 4097),
+                                  (8, 65536)])
+def test_kernel_matches_plain_zoo_nets(cuda, rng, name, nt, Q):
+    """A 128-wide last layer on the 256 tile, a 27-wide one on the 64 tile,
+    652 input columns from four fields, six layers, 256 -> 256 twice."""
+    splits, widths = ZOO_NETS[name]
+    ws, bs = _net(rng, splits, widths, cuda)
+    torch.manual_seed(0)
+    xs = _zoo_fields(name, nt, Q, cuda)
+    assert [x.shape[-1] for x in xs] == splits
+    before = siren_apply_fused.launches
+    got = siren_apply_fused(xs, ws, bs)
+    torch.cuda.synchronize()
+    assert siren_apply_fused.launches == before + 1
+    want = siren_apply_fused_plain(xs, ws, bs)
+    assert got.shape == want.shape == (nt, Q, widths[-1])
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("name,launches", [
+    ("LunaTokisTrain", 3), ("LunaTokisS", 2), ("LunaTokisNoFlow", 1),
+    ("LunaTokisZSM", 0), ("LIIF_test3", 0), ("LIIF_continuous", 0)])
+def test_zoo_models_launch_the_kernel(cuda, name, launches):
+    """Each model of the zoo on the card against itself with the plain
+    SIREN (1e-4), a batch of two, with the launches it must make; the
+    ablations and the fixed-x4 model make none."""
+    from stif_tpu_torch.models import make_model
+    from stif_tpu_torch.nn import Siren
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    model = make_model(name, nf=16, groups=4, front_RBs=1,
+                       back_RBs=1).to(cuda).eval()
+    x = torch.rand(2, 2, 8, 12, 3, device=cuda)
+    args = () if name == "LunaTokisZSM" else (
+        torch.tensor([0.0, 0.4, 1.0], device=cuda),)
+    with torch.inference_mode():
+        before = siren_apply_fused.launches
+        got = model(x, *args)
+        assert siren_apply_fused.launches == before + launches
+        for m in model.modules():
+            if isinstance(m, Siren):
+                m.fused = False
+        want = model(x, *args)
+        assert siren_apply_fused.launches == before + launches
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_tmnet_on_the_card_matches_cpu(cuda):
+    from stif_tpu_torch.models import TMNet
+    from stif_tpu_torch.runtime import InferencePipeline
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    model = TMNet(nf=16, groups=4, front_RBs=1, back_RBs=1)
+    for p in model.parameters():  # the offset convs start at zero
+        if p.abs().max() == 0:
+            torch.nn.init.uniform_(p, -0.05, 0.05)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    frames = np.random.default_rng(0).random((3, 8, 12, 3)).astype(np.float32)
+    got = InferencePipeline(model, bucket=4).render_window_tmnet(
+        frames, [0.25, 0.75])
+    ref = TMNet(nf=16, groups=4, front_RBs=1, back_RBs=1)
+    ref.load_state_dict(state)
+    want = InferencePipeline(ref, bucket=4, device="cpu").render_window_tmnet(
+        frames, [0.25, 0.75])
+    assert got.shape == want.shape == (7, 32, 48, 3)
+    assert np.abs(got - want).max() <= 1e-4
+
+
 @pytest.fixture
 def small_model(cuda):
     from stif_tpu_torch.models import LunaTokis

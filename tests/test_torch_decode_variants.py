@@ -16,7 +16,8 @@ import jax.numpy as jnp
 from stif_tpu.models import LunaTokis as JLunaTokis
 from stif_tpu.ops.coords import make_coord_demo as j_make_coord_demo
 
-from stif_tpu_torch.models import LunaTokis
+from stif_tpu_torch.models import LunaTokis, make_model
+from stif_tpu_torch.nn import Siren
 from stif_tpu_torch.ops import make_coord_demo
 from stif_tpu_torch.ops.siren_fused import _field_layout
 from stif_tpu_torch.runtime import ChunkedDecoder
@@ -114,6 +115,50 @@ def test_fields_are_layouts_the_kernel_reads(setup, path, B):
     # its row period is B * Q of the nt * B * Q rows
     rows, layouts = seen[0]
     assert layouts[0][2] * len(TIMES) == rows
+
+
+# model of the zoo -> SIREN calls of one forward
+ZOO = {"LunaTokisTrain": 3, "LunaTokisS": 2, "LunaTokisNoFlow": 1,
+       **{f"LIIF_{p}": 3 for p in ("test2", "test3", "test4", "test5",
+                                   "nomul", "single", "continuous")},
+       "LIIF_test4/mulfeat": 9, "LIIF_test5/mulfeat": 9}
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("name", list(ZOO))
+def test_fields_are_layouts_the_kernel_reads_zoo(name, B):
+    """The same for every SIREN call of every model of the zoo, the
+    ablations (built off the kernel) and ``decode_mulfeat`` included: a list
+    of at most 8 views that ``_field_layout`` takes, the time-independent
+    ones still broadcast over the times."""
+    name, _, mulfeat = name.partition("/")
+    N = 4 if mulfeat else 2
+    torch.manual_seed(0)
+    pm = make_model(name, nf=8, groups=2, front_RBs=1, back_RBs=1,
+                    n_inputs=N).eval()
+    seen = []
+
+    def hook(_net, args):
+        fields = args[0]
+        assert isinstance(fields, list) and 1 <= len(fields) <= 8
+        q = fields[0].shape[:-1].numel()
+        seen.append((q, [_field_layout(v, q) for v in fields]))
+
+    nets = [m for m in pm.modules() if isinstance(m, Siren)]
+    for net in nets:
+        assert net.fused == (not name.startswith("LIIF_"))
+        net.register_forward_pre_hook(hook)
+    x = torch.rand(B, N, H, W, 3)
+    with torch.inference_mode():
+        if mulfeat:
+            pm(x, None, mulfeat=True)
+        else:
+            pm(x, t(TIMES))
+    assert len(seen) == ZOO[name + ("/mulfeat" if mulfeat else "")]
+    rows, layouts = seen[0]
+    nt = 2 if mulfeat else len(TIMES)
+    assert rows == nt * B * 16 * H * W
+    assert layouts[0][2] * nt == rows  # period B * Q
 
 
 # (window, centre): even, odd, and one that underflows -1 and is shifted

@@ -1,6 +1,10 @@
-"""The port's video script ``scripts/test_video_torch.py`` on the CPU: three
+"""The port's scripts on the CPU. ``scripts/test_video_torch.py``: three
 tiny frames in, HR / bicubic / LR files out, at the script's own model
-(full width) with random weights."""
+(full width) with random weights. ``scripts/eval_model_torch.py``: a tiny
+config and a ``.pth`` written by the test, one scene, the JSON record of
+``scripts/eval_model.py``."""
+
+import json
 
 import importlib.util
 import os
@@ -27,8 +31,8 @@ def _write_frames(folder: Path, n: int, hw):
         cv2.imwrite(str(folder / f"{i:03d}.png"), img)
 
 
-def _main():
-    spec = importlib.util.spec_from_file_location("test_video_torch", SCRIPT)
+def _main(script=SCRIPT):
+    spec = importlib.util.spec_from_file_location(script.stem, script)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.main
@@ -78,3 +82,116 @@ def test_script_rejects_params_and_needs_a_gpu(tmp_path):
         with pytest.raises(RuntimeError):
             main(["--input", str(tmp_path / "in"), "--output",
                   str(tmp_path / "out")])
+
+
+# ------------------------------------------------- scripts/eval_model_torch.py
+
+EVAL_SCRIPT = ROOT / "scripts" / "eval_model_torch.py"
+# the keys of the record ``scripts/eval_model.py`` writes
+EVAL_KEYS = {
+    "protocol", "provenance", "checkpoint_step", "gather_dtype", "mlp_dtype",
+    "stagec", "decode_mode", "rgb_skip", "psnr_y", "ssim_y", "mean_psnr_y",
+    "mean_ssim_y", "psnr_y_by_time", "ssim_y_by_time", "avg_window_time_s",
+    "wall_s", "baseline_bicubic", "x8_temporal"}
+
+
+@pytest.fixture(scope="module")
+def tiny_checkpoint(tmp_path_factory):
+    """A tiny ``LIIF`` config (``rgb_skip: bicubic``) and a ``.pth`` of
+    seeded random weights for it."""
+    from stif_tpu_torch.models import LunaTokis
+
+    root = tmp_path_factory.mktemp("eval_script")
+    cfg = root / "tiny.yml"
+    cfg.write_text(
+        "name: tiny\nscale: 4\nnetwork_G:\n  which_model_G: LIIF\n"
+        "  nf: 8\n  nframes: 6\n  groups: 2\n  front_RBs: 1\n"
+        "  back_RBs: 1\n  rgb_skip: bicubic\n")
+    torch.manual_seed(0)
+    model = LunaTokis(nf=8, groups=2, front_RBs=1, back_RBs=1)
+    pth = root / "tiny.pth"
+    torch.save({"module." + k: v for k, v in model.state_dict().items()},
+               pth)
+    return root, cfg, pth
+
+
+def test_eval_script_record(tiny_checkpoint):
+    """One scene, the scale sweep at x2, the x16 protocols and a knob, in a
+    process of its own, as a user runs it."""
+    root, cfg, pth = tiny_checkpoint
+    out = subprocess.run(
+        [sys.executable, str(EVAL_SCRIPT), "-opt", str(cfg), "--pth",
+         str(pth), "--scenes", "1", "--eval-root", str(root / "data"),
+         "--scale-sweep", "2", "--x16", "--stagec-dedup", "--out",
+         str(root / "EVAL.json"), "--device", "cpu"],
+        capture_output=True, text=True, timeout=900, cwd=root,
+        env=dict(os.environ, OMP_NUM_THREADS=str(NUM_THREADS)))
+    assert out.returncode == 0, out.stderr
+    rec = json.loads((root / "EVAL.json").read_text())
+    assert set(rec) == EVAL_KEYS | {"scale_sweep", "x16_protocols"}
+    assert rec["rgb_skip"] == "bicubic" and rec["decode_mode"] == "decoding"
+    assert rec["stagec"] == {"nearest": False, "dedup": True,
+                             "dtype": "inherit"}
+    assert rec["gather_dtype"] == rec["mlp_dtype"] == "fp32"
+    assert list(rec["psnr_y"]) == ["scene0"]
+    assert set(rec["psnr_y_by_time"]) == {"t0.5", "t0.0"}
+    assert set(rec["baseline_bicubic"]) == {"t0_psnr", "t0_ssim", "t05_psnr",
+                                            "t05_ssim"}
+    assert len(rec["x8_temporal"]["per_time_psnr_y"]) == 8
+    assert len(rec["x8_temporal"]["baseline_frame_hold"][
+        "per_time_psnr_y"]) == 8
+    assert set(rec["scale_sweep"]) == {"x2"}
+    assert set(rec["scale_sweep"]["x2"]) == {
+        "t0_psnr", "t0_ssim", "t05_psnr", "t05_ssim", "bi_t0_psnr",
+        "bi_t0_ssim"}
+    assert set(rec["x16_protocols"]) == {
+        "adobe_4x_mean_psnr_rgb", "adobe_4x_mean_ssim_rgb",
+        "adobe_liif4x_mean_psnr_y", "adobe_liif4x_mean_ssim_y",
+        "bicubic_x16_t0_psnr_rgb"}
+    prov = rec["provenance"]
+    assert prov["weights"] == str(pth) and len(prov["weights_sha256"]) == 64
+    assert np.isfinite(rec["mean_psnr_y"])
+    # the bicubic baseline beats random weights; both are real numbers
+    assert rec["baseline_bicubic"]["t0_psnr"] > 20
+
+
+def test_eval_script_baselines_match_jax_script(tiny_checkpoint):
+    """The two baselines, which need no model, against those of
+    ``scripts/eval_model.py`` on the same folders."""
+    root, _, _ = tiny_checkpoint
+    spec = importlib.util.spec_from_file_location(
+        "eval_model", ROOT / "scripts" / "eval_model.py")
+    j_script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(j_script)
+    spec = importlib.util.spec_from_file_location("eval_model_torch",
+                                                  EVAL_SCRIPT)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    gt = script.build_eval_set(str(root / "base"), n_scenes=1, n_frames=10,
+                               size=(36, 52))
+    got, want = script.bicubic_baseline(gt), j_script.bicubic_baseline(gt)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-3, k
+    got = script.frame_hold_x8_baseline(gt)
+    want = j_script.frame_hold_x8_baseline(gt)
+    np.testing.assert_allclose(got["per_time_psnr"], want["per_time_psnr"],
+                               atol=1e-3)
+    assert abs(got["mean_psnr"] - want["mean_psnr"]) <= 1e-3
+
+
+def test_eval_script_flags(tiny_checkpoint):
+    """``--pth`` is required; ``--best``, ``--step`` and ``--platform`` are
+    not ported: refused, not accepted and ignored. Without ``--device cpu``
+    the script raises where there is no GPU."""
+    root, cfg, pth = tiny_checkpoint
+    main = _main(EVAL_SCRIPT)
+    with pytest.raises(SystemExit):
+        main(["-opt", str(cfg)])
+    for flag in (["--best"], ["--step", "3"], ["--platform", "cpu"]):
+        with pytest.raises(SystemExit):
+            main(["-opt", str(cfg), "--pth", str(pth)] + flag)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            main(["-opt", str(cfg), "--pth", str(pth), "--scenes", "1",
+                  "--eval-root", str(root / "data2"), "--scale-sweep", ""])

@@ -199,3 +199,59 @@ def test_score_in_memory_clip():
     assert calls == 2 and seconds > 0
     assert [t for t, _, _ in scores] == [0.5, 0.0, 0.5, 0.0]
     assert all(np.isfinite(p) and 0 < s <= 1 for _, p, s in scores)
+
+
+# ---------------------------------------------------------- TMNet protocols
+
+TM_CFG = dict(nf=8, groups=2, front_RBs=1, back_RBs=1)
+
+
+@pytest.fixture(scope="module")
+def tmnet_pipes():
+    """The JAX pipeline around the JAX TMNet and the port's pipeline around
+    the port's TMNet, on the same converted parameters (offsets perturbed)."""
+    import jax.numpy as jnp
+
+    from stif_tpu.models import TMNet as JTMNet
+    from stif_tpu.runtime import InferencePipeline as JPipeline
+    from stif_tpu_torch.models import TMNet
+    from torch_parity import load_into_port, random_params
+
+    jm = JTMNet(**TM_CFG)
+    params = random_params(jm, jnp.zeros((1, 2, 8, 8, 3)),
+                           jnp.asarray([[0.5]]), seed=51)
+    pm = load_into_port(TMNet(**TM_CFG), params)
+    return (InferencePipeline(pm, bucket=4, device="cpu"),
+            JPipeline(jm, params, bucket=4))
+
+
+def test_render_window_tmnet(tmnet_pipes, rng):
+    """4 frames of 6x10 (padded to 8x12 and cropped back) and 2 times:
+    10 frames out at x4, within the model forward's 5e-5."""
+    pipe, j_pipe = tmnet_pipes
+    frames = rng.random((4, 6, 10, 3)).astype(np.float32)
+    got = pipe.render_window_tmnet(frames, [0.25, 0.75])
+    want = j_pipe.render_window_tmnet(frames, [0.25, 0.75])
+    assert got.shape == want.shape == (10, 24, 40, 3)
+    np.testing.assert_allclose(got, want, atol=5e-5)
+
+
+@pytest.mark.parametrize("protocol", ["eval_adobe_tmnet", "eval_vid4_tmnet"])
+def test_tmnet_protocol_matches_jax_pipeline(tmnet_pipes, tmp_path, protocol):
+    """One synthetic folder through the JAX harness with the JAX pipeline
+    and through the port's harness with the port's: PSNR within 1e-3 dB,
+    SSIM within 1e-5. One window each: 19 frames of 64x96 (Adobe: LR 1/8,
+    GT 1/2, 18 scored frames) or 7 frames of 32x48 (Vid4: 4 scored)."""
+    pipe, j_pipe = tmnet_pipes
+    adobe = protocol == "eval_adobe_tmnet"
+    root = synthetic.render_eval_folders(
+        str(tmp_path / "gt"), n_scenes=1, n_frames=19 if adobe else 7,
+        size=(70, 100) if adobe else (32, 48), seed0=321)
+    got = getattr(p_eval, protocol)(
+        pipe, root, logfile=str(tmp_path / "port.log"), epoch_id=3, iter_id=4)
+    want = getattr(j_eval, protocol)(j_pipe, root)
+    assert list(got.psnr) == ["scene0"] and np.isfinite(got.mean_psnr)
+    _assert_same(got, want)
+    if adobe:
+        assert got.mid_psnr > 0
+    assert "[3/4]" in (tmp_path / "port.log").read_text()

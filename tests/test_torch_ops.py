@@ -9,6 +9,7 @@ import jax.numpy as jnp
 
 from stif_tpu.ops import resize as j_resize
 from stif_tpu.ops.coords import make_coord as j_make_coord
+from stif_tpu.ops.fold import fold3x3 as j_fold3x3
 from stif_tpu.ops.grid_sample import grid_sample as j_grid_sample
 from stif_tpu.ops.pixel_shuffle import pixel_shuffle as j_pixel_shuffle
 from stif_tpu.ops.warp import warp_grid as j_warp_grid
@@ -23,6 +24,7 @@ from stif_tpu_torch.ops import (
     resize_bilinear,
     warp_grid,
 )
+from stif_tpu_torch.ops.fold import fold3x3
 from stif_tpu_torch.runtime import pad_to_multiple, window_plan
 from torch_parity import t
 
@@ -144,6 +146,24 @@ def test_pixel_shuffle(rng, r):
     want = np.asarray(j_pixel_shuffle(jnp.asarray(x), r))
     got = pixel_shuffle(t(x), r).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 7, 27), (1, 1, 1, 9),
+                                   (1, 2, 3, 18)])
+def test_fold3x3(rng, shape):
+    """Against the JAX function and against ``F.fold(kernel_size=3,
+    padding=1)``, whose channel layout it keeps; bar 1e-6."""
+    import torch.nn.functional as F
+
+    x = rng.standard_normal(shape).astype(np.float32)
+    got = fold3x3(t(x)).numpy()
+    want = np.asarray(j_fold3x3(jnp.asarray(x)))
+    B, H, W, C9 = shape
+    assert got.shape == want.shape == (B, H, W, C9 // 9)
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    cols = t(x).reshape(B, H * W, C9).transpose(1, 2)
+    lib = F.fold(cols, (H, W), kernel_size=3, padding=1).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(got, lib.numpy(), atol=1e-6)
 
 
 @pytest.mark.parametrize("hw,multiple,bucket", [((5, 7), 4, 1),

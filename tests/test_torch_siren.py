@@ -40,15 +40,27 @@ NETS = {
 }
 
 
+# the model zoo's six nets (LunaTokisTrain's three, LunaTokisS's two,
+# LunaTokisNoFlow's one) with the field splits their models hand over
+ZOO_NETS = {
+    "train_feat": ([200], [64, 64, 64, 256], 3, 128),
+    "train_flow": ([128, 200, 1], [64, 64, 64, 256], 3, 4),
+    "train_encode": ([128, 198, 128, 198], [64, 64, 64, 256, 256], 4, 27),
+    "s_flow": ([200, 1], [64, 64, 256], 2, 4),
+    "s_encode": ([192, 192, 6, 6], [64, 64, 256, 256], 3, 3),
+    "noflow_feat": ([200, 1], [64, 64, 256, 256, 256], 4, 3),
+}
+
+
 def _flax_net(name, seed):
-    splits, hidden, n_hidden, out = NETS[name]
+    splits, hidden, n_hidden, out = {**NETS, **ZOO_NETS}[name]
     model = JSiren(hidden, n_hidden, out, outermost_linear=True)
     params = model.init(jax.random.PRNGKey(seed),
                         jnp.zeros((1, sum(splits)), jnp.float32))
     return model, params, splits
 
 
-@pytest.mark.parametrize("name", list(NETS))
+@pytest.mark.parametrize("name", list(NETS) + list(ZOO_NETS))
 @pytest.mark.parametrize("q", [333, 1024])
 def test_plain_matches_pallas_interpret(rng, name, q):
     _, params, splits = _flax_net(name, seed=q)
@@ -130,6 +142,8 @@ PLAN_CASES = {
     "flow_imnet": ([64, 192, 6, 1], [263, 64, 64, 256, 4]),
     "encode_imnet": ([64, 64, 192, 192, 6, 6, 1],
                      [525, 64, 64, 256, 256, 3]),
+    **{name: (splits, [sum(splits)] + hidden[:n_hidden + 1] + [out])
+       for name, (splits, hidden, n_hidden, out) in ZOO_NETS.items()},
     "one_field_width_1": ([1], [1, 64, 3]),
     "k_under_one_chunk": ([3, 4], [7, 64, 64, 4]),
     "k_exact_chunks": ([100, 28], [128, 64, 256, 3]),
@@ -180,6 +194,36 @@ def test_launch_plan_decoder_nets_share_an_sm():
     for name in NETS:
         plan = launch_plan(*PLAN_CASES[name])
         assert 2 * (plan.smem_bytes + 1024) <= 227 * 1024
+
+
+def test_launch_plan_zoo_nets():
+    """The six zoo nets: tile widths (a 128-wide last layer on the 256
+    tile, a 27-wide one on the 64 tile, 4 and 3 as reductions), K-chunks,
+    first-layer chunks (652 columns: 11, the last 12 wide, cut from four
+    fields) and the flagship's shared bytes, two blocks per SM."""
+    want = {
+        "train_feat": ((64, 64, 64, 256, 256), (64, 64, 64, 16, 16), 4),
+        "train_flow": ((64, 64, 64, 256, 0), (64, 64, 64, 16, 0), 6),
+        "train_encode": ((64, 64, 64, 256, 256, 64),
+                         (64, 64, 64, 16, 16, 64), 11),
+        "s_flow": ((64, 64, 256, 0), (64, 64, 16, 0), 4),
+        "s_encode": ((64, 64, 256, 256, 0), (64, 64, 16, 16, 0), 7),
+        "noflow_feat": ((64, 64, 256, 256, 256, 0),
+                        (64, 64, 16, 16, 16, 0), 4),
+    }
+    for name, (pitch, kc, n_chunks) in want.items():
+        plan = launch_plan(*PLAN_CASES[name])
+        assert (plan.pitch, plan.kc, len(plan.chunks)) == (pitch, kc,
+                                                           n_chunks), name
+        assert plan.smem_bytes == 102416
+        assert 2 * (plan.smem_bytes + 1024) <= 227 * 1024
+    last = launch_plan(*PLAN_CASES["train_encode"]).chunks[-1]
+    assert last == ((3, 186, 198),)
+    # chunk 1 of train_flow's input straddles two fields
+    assert launch_plan(*PLAN_CASES["train_flow"]).chunks[1] == (
+        (0, 64, 128),)
+    assert launch_plan(*PLAN_CASES["train_flow"]).chunks[5] == (
+        (1, 192, 200), (2, 0, 1))
 
 
 @pytest.mark.parametrize("splits,dims", [

@@ -9,9 +9,13 @@ pyramid levels).
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import jax
 import numpy as np
 import torch
+
+ROOT = Path(__file__).resolve().parents[1]
 
 # The tests run in several worker processes that share one machine's cores.
 # With PyTorch's default of a thread per core in each process they get in
