@@ -53,6 +53,25 @@ Run from the root of a checkout. In order:
       ``decode_mulfeat`` on ``test4``: finite, against the CPU, 0 launches;
    e. ``eval_adobe_tmnet`` and ``eval_vid4_tmnet`` on rendered folders:
       finite PSNR and SSIM;
+8. training at the full width of ``configs/train_synthetic_r5.yml`` (the
+   options built as a dict, weights from ``nn/init.py`` under seed 0):
+   a. ``VideoSRModel`` on ``create_train_dataset``'s batches at the x4, x2
+      and x8 buckets (B 4, nt 3): 2 warm-up and 10 timed steps each, per
+      step the bucket, loss and grad norm; then ms per step by CUDA events
+      (median, min, max), the forward / backward / optimizer split,
+      samples/s, peak memory, and at x4 one profiled step's top kernels and
+      the device's idle share; no kernel launch;
+   b. ten steps on one fixed x4 batch with warmup off: the loss falls;
+   c. one step from the same init on the card and on the CPU (B 1, LR
+      16x16, nt 2): loss within rtol 1e-4, grad norm within rtol 1e-3, and
+      the largest per-parameter gradient difference;
+   d. save after [8b]'s steps, resume into a fresh model: params, Adam
+      moments, step and EMA bitwise equal, the next loss within rtol 1e-5;
+   e. a ``Validator`` probe (1 dev scene, 144x192) through the kernel and
+      through the plain SIREN: Y-PSNR within 0.01 dB; ``BestTracker``'s
+      ``best.json`` read back by ``eval_model_torch``'s ``--best`` loader;
+   f. ``scripts/train_torch.py``'s ``run`` for 20 steps (validation and
+      checkpoints every 10), then resumed to 25;
 6. the ``kernels`` JSON line (launches summed over every path driven), then
    the result line.
 
@@ -290,24 +309,17 @@ def kernel_phase(device, peaks):
     return worst, ms, plain_ms, max(ops_ms, bytes_ms), bound_by
 
 
-def set_fused(model, fused: bool) -> None:
-    from stif_tpu_torch.nn import Siren
-
-    for m in model.modules():
-        if isinstance(m, Siren):
-            m.fused = fused
-
-
-def profile_window(pipe, frames, times, window_ms: float,
-                   card: str) -> None:
-    """Device time of one window by kernel (``torch.profiler``), and the
-    device's idle share of an unprofiled window's wall time ``window_ms``."""
+def device_profile(fn, wall_ms: float, what: str, card: str,
+                   top: int = 12) -> None:
+    """Device time of one call of ``fn`` by kernel (``torch.profiler``), and
+    the device's idle share of an unprofiled call's wall time
+    ``wall_ms``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pipe.render_window(frames, times)
+        fn()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
@@ -316,10 +328,10 @@ def profile_window(pipe, frames, times, window_ms: float,
     if not rows:
         log("  profile: the profiler saw no device time (not measured)")
         return
-    log(f"  profile: device busy {busy:.1f} ms per window; idle share "
-        f"{1 - busy / window_ms:.3f} of the unprofiled {window_ms:.1f} ms "
+    log(f"  profile: device busy {busy:.1f} ms per {what}; idle share "
+        f"{1 - busy / wall_ms:.3f} of the unprofiled {wall_ms:.1f} ms "
         f"[{card}]")
-    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         log(f"    {ms:8.2f} ms {100 * ms / busy:5.1f} %  x{count:<5d} "
             f"{key[:90]}")
 
@@ -330,6 +342,7 @@ def main_path(card: str):
     import torch
     from stif_tpu_torch.convert import load_pth
     from stif_tpu_torch.models import LunaTokis
+    from stif_tpu_torch.nn.siren import set_fused
     from stif_tpu_torch.ops import siren_apply_fused
     from stif_tpu_torch.runtime import InferencePipeline
 
@@ -387,7 +400,8 @@ def main_path(card: str):
                 dec.append(e1.elapsed_time(e2))
     log(f"  split: encode (gen_feat) {np.mean(enc):.1f} ms, decode "
         f"{np.mean(dec):.1f} ms [{card}]")
-    profile_window(pipe, frames, times, 1e3 * win, card)
+    device_profile(lambda: pipe.render_window(frames, times), 1e3 * win,
+                   "window", card)
 
     # the same window with the plain SIREN on the card
     set_fused(model, False)
@@ -535,6 +549,7 @@ def slice_phase(card: str, device) -> int:
     """Phases 5b-5g. Returns the SIREN launches of every path driven."""
     import torch
     from stif_tpu_torch.data.synthetic import render_sequence
+    from stif_tpu_torch.nn.siren import set_fused
     from stif_tpu_torch.runtime import (ChunkedDecoder, InferencePipeline,
                                         pad_to_multiple)
     from stif_tpu_torch.runtime.eval import _score_space_time_sr
@@ -827,6 +842,7 @@ def zoo_phase(card: str, device) -> int:
                                        LunaTokisTrain, LunaTokisZSM, TMNet)
     from stif_tpu_torch.models.ablations import _PRESETS
     from stif_tpu_torch.models.factory import define_g
+    from stif_tpu_torch.nn.siren import set_fused
     from stif_tpu_torch.runtime import InferencePipeline
     from stif_tpu_torch.runtime.eval import eval_adobe_tmnet, eval_vid4_tmnet
 
@@ -983,6 +999,338 @@ def zoo_phase(card: str, device) -> int:
     return count.total
 
 
+# ----------------------------------------------------------------- phase 8
+
+TRAIN_BUCKETS = ((4, 48), (2, 48), (8, 24))  # (scale, LR size): GT 192, 96
+WARM_STEPS, TIMED_STEPS = 2, 10
+STEP_LOSS_RTOL, STEP_GNORM_RTOL = 1e-4, 1e-3  # [8c], card vs CPU
+RESUME_RTOL = 1e-5                             # [8d], next loss after resume
+
+
+def r5_opt(models_dir: str, val_root: str) -> dict:
+    """``configs/train_synthetic_r5.yml`` as a dict (full width: LIIF, nf 64,
+    groups 8, 5 + 40 blocks, ``rgb_skip`` bicubic; B 4, nt 3, its bucket
+    plan, lr 1e-4, warmup 200, clip 1e6, EMA 0.999), with the validator on
+    one dev scene and everything written under the given directories."""
+    return {
+        "name": "chip_smoke_r5", "model": "VideoSR_base", "scale": 4,
+        "use_tb_logger": True,
+        "datasets": {
+            "train": {
+                "mode": "Synthetic", "n_items": 20000, "nt": 3, "seed": 55,
+                "interval_choices": [2, 2, 4], "n_workers": 2,
+                "batch_size": 4, "GT_size": 192,
+                "scale_plan": [[2, 48], [3, 48], [4, 48], [4, 48], [4, 48],
+                               [6, 32], [8, 24]],
+                "natural_frac": 0.25},
+            "val": {"n_scenes": 1, "root": val_root, "scale_probes": []}},
+        "network_G": {"which_model_G": "LIIF", "nf": 64, "nframes": 6,
+                      "groups": 8, "front_RBs": 5, "back_RBs": 40,
+                      "rgb_skip": "bicubic"},
+        "path": {"models": models_dir},
+        "train": {
+            "lr_G": 1e-4, "beta1": 0.9, "beta2": 0.99, "niter": 27000,
+            "warmup_iter": 200,
+            "T_period": [3000, 3000, 4000, 5000, 6000, 6000],
+            "restarts": [3000, 6000, 10000, 15000, 21000],
+            "restart_weights": [0.75, 0.55, 0.42, 0.32, 0.25],
+            "eta_min": 1e-7, "pixel_criterion": "cb", "pixel_weight": 1.0,
+            "grad_clip": 1e6, "ema_decay": 0.999, "val_freq": 500},
+        "logger": {"print_freq": 50, "save_checkpoint_freq": 500},
+    }
+
+
+def with_buckets(opt: dict, plan) -> dict:
+    import copy
+
+    out = copy.deepcopy(opt)
+    out["datasets"]["train"]["scale_plan"] = [list(b) for b in plan]
+    return out
+
+
+def batches(opt: dict):
+    """The train script's loader over ``create_train_dataset(opt)``: a
+    generator of batches (close it to stop the loader's thread)."""
+    from stif_tpu_torch.data.datasets import create_train_dataset
+    from stif_tpu_torch.data.loader import DataLoader, ShardedIterSampler
+
+    ds, collate = create_train_dataset(opt)
+    dopt = opt["datasets"]["train"]
+    return DataLoader(ds, batch_size=dopt["batch_size"], collate=collate,
+                      sampler=ShardedIterSampler(len(ds), ratio=100)
+                      ).epoch(0)
+
+
+def timed_step(model):
+    """One ``optimize_parameters`` with CUDA events at its phases: (logs,
+    {forward, backward, update, step} ms). 'update' is the optimizer and
+    the EMA; the step ends once its logs are on the host."""
+    import torch
+
+    ev = {k: torch.cuda.Event(enable_timing=True)
+          for k in ("start", "forward", "backward", "end")}
+    ev["start"].record()
+    logs = model.optimize_parameters(
+        mark=lambda name: ev[name].record() if name in ev else None)
+    ev["end"].record()
+    ev["end"].synchronize()
+    return logs, {"forward": ev["start"].elapsed_time(ev["forward"]),
+                  "backward": ev["forward"].elapsed_time(ev["backward"]),
+                  "update": ev["backward"].elapsed_time(ev["end"]),
+                  "step": ev["start"].elapsed_time(ev["end"])}
+
+
+def train_speed(opt: dict, card: str) -> None:
+    """[8a]: train steps at each of ``TRAIN_BUCKETS``, timed."""
+    import torch
+    from stif_tpu_torch.data.natural import find_natural_textures
+    from stif_tpu_torch.train.video_sr_model import VideoSRModel
+
+    n = len(find_natural_textures())
+    log(f"  bundled photographs found: {n}" + (
+        "" if n else " (the natural_frac samples are procedural scenes)"))
+    model = VideoSRModel(opt)
+    for bucket in TRAIN_BUCKETS:
+        gen = batches(with_buckets(opt, [bucket]))
+        if model.optimizer is None:  # init from the first batch
+            first = next(gen)
+            model.init_params(first["LQs"], first["times"], seed=0)
+            n = sum(p.numel() for p in model.net.parameters())
+            log(f"  init_model_ (seed 0): {n} parameters")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rows, walls = [], []
+        for i in range(WARM_STEPS + TIMED_STEPS):
+            batch = next(gen)
+            t0 = time.perf_counter()
+            model.feed_data(batch)
+            logs, ms = timed_step(model)
+            wall = 1e3 * (time.perf_counter() - t0)
+            s, g = batch["scale"], batch["GT"].shape[2]
+            log(f"  step {model.step:3d} x{s} GT {g}x{g} B {len(batch['GT'])}"
+                f" nt {batch['GT'].shape[1]}: loss {logs['loss']:.2f}, grad "
+                f"norm {logs['grad_norm']:.1f}, {ms['step']:.1f} ms "
+                f"(wall {wall:.1f})" + ("  [warm-up]" if i < WARM_STEPS
+                                        else ""))
+            if not (np.isfinite(logs["loss"]) and
+                    np.isfinite(logs["grad_norm"])):
+                raise AssertionError(f"step {model.step}: not finite")
+            if i >= WARM_STEPS:
+                rows.append(ms)
+                walls.append(wall)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        step = [r["step"] for r in rows]
+        med = {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+        B = batch["GT"].shape[0]
+        log(f"  x{bucket[0]} bucket (LR {bucket[1]}, GT {batch['GT'].shape[2]}"
+            f"), {TIMED_STEPS} steps: {med['step']:.1f} ms/step median "
+            f"(min {min(step):.1f}, max {max(step):.1f}); forward "
+            f"{med['forward']:.1f}, backward {med['backward']:.1f}, "
+            f"optimizer + EMA {med['update']:.1f} ms; "
+            f"{1e3 * B / med['step']:.2f} samples/s; host wall "
+            f"{np.median(walls):.1f} ms/step; peak {peak:.2f} GiB [{card}]")
+        if bucket == TRAIN_BUCKETS[0]:  # one profiled step at x4
+            model.feed_data(next(gen))
+            device_profile(model.optimize_parameters,
+                           float(np.median(walls)), "x4 train step", card,
+                           top=15)
+        gen.close()
+
+
+def train_phase(card: str, device) -> int:
+    """Phases 8a-8f. Returns the SIREN launches of every path driven."""
+    import copy
+    import importlib.util
+    import logging
+    import tempfile
+    from argparse import Namespace
+
+    import torch
+    from stif_tpu_torch.data.synthetic import SyntheticVideoDataset
+    from stif_tpu_torch.nn.siren import set_fused
+    from stif_tpu_torch.train.validation import BestTracker, Validator
+    from stif_tpu_torch.train.video_sr_model import VideoSRModel
+
+    count = Launches()
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory()
+    opt = r5_opt(f"{tmp.name}/models", f"{tmp.name}/val")
+
+    log("[8a] train steps at the r5 config's full width: ms, split, "
+        "samples/s, peak, profile")
+    count.run("train steps", 0, lambda: train_speed(opt, card))
+    torch.cuda.empty_cache()
+
+    log("[8b] ten steps on one fixed x4 batch, warmup off: the loss falls")
+    fixed = copy.deepcopy(opt)
+    fixed["train"]["warmup_iter"] = -1
+    gen = batches(with_buckets(fixed, [TRAIN_BUCKETS[0]]))
+    batch = next(gen)
+    gen.close()
+    model = VideoSRModel(fixed)
+    model.init_params(batch["LQs"], batch["times"], seed=0)
+    model.feed_data(batch)
+    steps = count.run("fixed batch", 0,
+                      lambda: [timed_step(model) for _ in range(10)])
+    losses = [logs["loss"] for logs, _ in steps]
+    log("  losses " + ", ".join(f"{v:.2f}" for v in losses))
+    log(f"  {float(np.median([ms['step'] for _, ms in steps[2:]])):.1f} ms "
+        "per step median of steps 3-10, no loader thread running "
+        f"[{card}]")
+    require("last loss / first loss", losses[-1] / losses[0],
+            losses[-1] < losses[0])
+
+    log("[8c] one train step from the same init on the card and on the CPU "
+        "(full width, B 1, LR 16x16, GT 64x64, nt 2; TF32 off)")
+    small = SyntheticVideoDataset(n_items=10, gt_size=64, scale=4, nt=2,
+                                  seed=55)[0]
+    one = {k: (v[None] if k != "key" else v) for k, v in small.items()}
+    logs, grads = [], []
+    for dev in (device, "cpu"):
+        m = VideoSRModel(fixed, device=dev)
+        m.init_params(one["LQs"], one["times"], seed=0)
+        m.feed_data(one)
+        t0 = time.perf_counter()
+        logs.append(count.run(f"train step on {dev}", 0,
+                              m.optimize_parameters))
+        log(f"  {dev}: loss {logs[-1]['loss']:.6f}, grad norm "
+            f"{logs[-1]['grad_norm']:.4f}, {time.perf_counter() - t0:.2f} s")
+        grads.append({n: p.grad.cpu() for n, p in m.net.named_parameters()
+                      if p.grad is not None})
+        del m
+    (gpu, cpu) = logs
+    d = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    require("loss, card vs CPU, relative", d, d <= STEP_LOSS_RTOL)
+    d = abs(gpu["grad_norm"] - cpu["grad_norm"]) / abs(cpu["grad_norm"])
+    require("grad norm, card vs CPU, relative", d, d <= STEP_GNORM_RTOL)
+    worst = max(((n, (grads[0][n] - g).abs().max().item(),
+                  g.abs().max().item()) for n, g in grads[1].items()),
+                key=lambda r: r[1] / max(r[2], 1e-30))
+    log(f"  largest per-parameter gradient difference (relative to the "
+        f"parameter's largest gradient): {worst[0]}: {worst[1]:.3e} of "
+        f"{worst[2]:.3e}")
+    torch.cuda.empty_cache()
+
+    log("[8d] save after 10 steps, resume into a fresh VideoSRModel")
+    model.save()
+    saved = train_state(model)
+    loss_next = model.optimize_parameters()["loss"]
+    fresh = VideoSRModel(fixed)
+    fresh.init_params(batch["LQs"], batch["times"], seed=1)
+    if fresh.resume_training() != 10:
+        raise AssertionError("resume did not return step 10")
+    mismatch = compare_states(train_state(fresh), saved)
+    if mismatch:
+        raise AssertionError(f"resumed state differs from the saved one: "
+                             f"{mismatch[:5]}")
+    log(f"  params, Adam moments ({len(saved['moments'])} tensors' "
+        "states), step and EMA bitwise equal to the saved ones")
+    fresh.feed_data(batch)
+    resumed = fresh.optimize_parameters()["loss"]
+    d = abs(resumed - loss_next) / abs(loss_next)
+    require(f"step 11 loss resumed {resumed:.4f} vs uninterrupted "
+            f"{loss_next:.4f}, relative difference", d, d <= RESUME_RTOL)
+    del fresh, saved
+    torch.cuda.empty_cache()
+
+    log("[8e] validation probe through the kernel vs the plain SIREN "
+        "(1 dev scene, 144x192), keep-best, eval_model_torch --best")
+    validator = Validator(model.net, root=f"{tmp.name}/val", n_scenes=1)
+    windows = 5  # 12 frames: input pairs (0, 2) ... (8, 10)
+    params = model.net.state_dict()
+    m_kernel = count.run("validation probe", 3 * windows,
+                         lambda: validator.validate(params))
+    set_fused(validator.net, False)
+    m_plain = count.run("validation probe, plain SIREN", 0,
+                        lambda: validator.validate(params))
+    set_fused(validator.net, True)
+    for key in ("t0_psnr", "t05_psnr"):
+        d = abs(m_kernel[key] - m_plain[key])
+        require(f"{key} kernel {m_kernel[key]:.4f} vs plain "
+                f"{m_plain[key]:.4f} dB, |d|", d, d <= PSNR_BAR)
+    best = BestTracker(f"{tmp.name}/models")
+    if not best.update(model.step, m_kernel, params):
+        raise AssertionError("the first probe was not kept as best")
+    spec = importlib.util.spec_from_file_location(
+        "eval_model_torch", ROOT / "scripts" / "eval_model_torch.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    args = Namespace(pth=None, best=True, step=None)
+    net = copy.deepcopy(validator.net).cpu()
+    script.load_weights(net, args, opt)
+    same = all(torch.equal(a.cpu(), b) for a, b in
+               zip(params.values(), net.state_dict().values()))
+    if args.ckpt_step != model.step or not same:
+        raise AssertionError("eval_model_torch --best did not read back "
+                             "the keep-best weights")
+    log(f"  best.json step {args.ckpt_step} read back by eval_model_torch "
+        "--best: weights bitwise equal")
+    del validator, model, net, params
+    torch.cuda.empty_cache()
+
+    log("[8f] scripts/train_torch.py run(): 20 steps (val and checkpoints "
+        "every 10), then resume to 25")
+    spec = importlib.util.spec_from_file_location(
+        "train_torch", ROOT / "scripts" / "train_torch.py")
+    train_script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(train_script)
+    run_opt = r5_opt(f"{tmp.name}/run", f"{tmp.name}/val")
+    run_opt["train"]["val_freq"] = 10
+    run_opt["logger"].update(print_freq=5, save_checkpoint_freq=10)
+    logging.getLogger("base").setLevel(logging.INFO)
+    # probes (raw and EMA each): 0, 10, 20; after resuming, 25
+    t0 = time.perf_counter()
+    last = count.run("train_torch.run, 20 steps", 3 * windows * 6,
+                     lambda: train_script.run(run_opt, steps=20))
+    t1 = time.perf_counter()
+    last2 = count.run("train_torch.run, resume to 25", 3 * windows * 2,
+                      lambda: train_script.run(run_opt, steps=25,
+                                               resume=True))
+    t2 = time.perf_counter()
+    text = Path(f"{tmp.name}/run/train.log").read_text()
+    curve = [json.loads(line)["step"] for line in
+             Path(f"{tmp.name}/run/val_curve.jsonl").read_text().splitlines()]
+    if (last, last2) != (20, 25) or "resumed at step 20" not in text \
+            or curve != [0, 10, 20, 25]:
+        raise AssertionError(f"train script: ended at {last}, {last2}; "
+                             f"probes at {curve}")
+    log(f"  run 1: steps 1-20 in {t1 - t0:.1f} s; run 2 resumed at step 20, "
+        f"ended at 25 in {t2 - t1:.1f} s (validation, init and checkpoints "
+        f"included); probes at steps {curve}")
+    for line in text.splitlines():
+        if " step " in line or "val @" in line:
+            log("    " + line.split(" INFO ")[-1])
+    tmp.cleanup()
+    return count.total
+
+
+def train_state(model) -> dict:
+    """What a resume must restore: step, params, Adam moments, EMA (copies
+    on the card)."""
+    opt = model.optimizer.state_dict()
+    return {"step": model.step,
+            "params": {k: v.clone() for k, v in
+                       model.net.state_dict().items()},
+            "moments": {i: {k: v.clone() for k, v in s.items()}
+                        for i, s in opt["state"].items()},
+            "ema": {k: v.clone() for k, v in model.ema_params.items()}}
+
+
+def compare_states(a: dict, b: dict) -> list:
+    """Names of the entries of two ``train_state``s that are not bitwise
+    equal."""
+    import torch
+
+    bad = [] if a["step"] == b["step"] else ["step"]
+    for key in ("params", "ema"):
+        bad += [f"{key}.{k}" for k in b[key]
+                if k not in a[key] or not torch.equal(a[key][k], b[key][k])]
+    for i, s in b["moments"].items():
+        bad += [f"moments.{i}.{k}" for k, v in s.items()
+                if not torch.equal(a["moments"].get(i, {}).get(k), v)]
+    return bad
+
+
 def main() -> int:
     import torch
 
@@ -1039,6 +1387,8 @@ def main() -> int:
     log("[7a] kernel vs plain at the model zoo's six nets, then timed")
     err = max(err, zoo_kernel_phase(device, peaks))
     launches += zoo_phase(card, device)
+
+    launches += train_phase(card, device)
 
     kernels = {"kernels": [{
         "name": "siren_fused",

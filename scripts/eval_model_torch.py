@@ -14,13 +14,15 @@ The eval sequences are deterministic procedural scenes
 
 Usage:
   python scripts/eval_model_torch.py -opt configs/train_synthetic.yml \
-      --pth weights/trained_best_G.pth [--gather-dtype bf16] [--scenes 4] \
-      [--out EVAL.json] [--device cuda]
+      [--pth weights/trained_best_G.pth | --best | --step N] \
+      [--gather-dtype bf16] [--scenes 4] [--out EVAL.json] [--device cuda]
 
 Runs on a CUDA GPU and raises when there is none; ``--device cpu`` runs on
-the CPU. The weights come from a reference-schema ``.pth`` (``--pth``,
-required); restoring a training checkpoint by step or by best score and the
-natural-photo scene families are not part of this script.
+the CPU. The weights come from a reference-schema ``.pth`` (``--pth``), the
+keep-best weights of a training run (``--best``, ``best.json`` in
+``path.models``), or a training checkpoint in ``path.models`` (``--step``,
+the latest without it). ``--wide`` adds the natural-photo families when
+bundled photographs are found.
 """
 
 import argparse
@@ -57,9 +59,9 @@ def _clips(gt_root: str, multiple: int, folders=None):
 
 def _bicubic_round_trip(gt: np.ndarray, downscale: float) -> np.ndarray:
     """MATLAB-bicubic downscale of a clip and back up to its size."""
-    from stif_tpu_torch.runtime.eval import _host_imresize
+    from stif_tpu_torch.data.datasets import host_imresize
 
-    return _host_imresize(_host_imresize(gt, downscale),
+    return host_imresize(host_imresize(gt, downscale),
                           float(round(1 / downscale)))
 
 
@@ -110,7 +112,8 @@ def eval_scale_sweep(net, gt_root, scales=(2, 3, 8), device=None) -> dict:
     {0, 0.5} (every-2nd-frame input pairs), against the bicubic x s
     baseline."""
     from stif_tpu_torch.runtime import InferencePipeline
-    from stif_tpu_torch.runtime.eval import _host_imresize, _metric_pair
+    from stif_tpu_torch.data.datasets import host_imresize
+    from stif_tpu_torch.runtime.eval import _metric_pair
 
     out = {}
     for s in scales:
@@ -118,8 +121,8 @@ def eval_scale_sweep(net, gt_root, scales=(2, 3, 8), device=None) -> dict:
         acc = {"t0_psnr": [], "t0_ssim": [], "t05_psnr": [], "t05_ssim": [],
                "bi_t0_psnr": [], "bi_t0_ssim": []}
         for gt in _clips(gt_root, 2 * s):
-            lr = _host_imresize(gt, 1.0 / s)
-            up = _host_imresize(lr, float(s))
+            lr = host_imresize(gt, 1.0 / s)
+            up = host_imresize(lr, float(s))
             for gi in list(range(0, gt.shape[0], 2))[:-1]:
                 pred = pipe.render_window(np.stack([lr[gi], lr[gi + 2]]),
                                           [0.0, 0.5])
@@ -139,10 +142,48 @@ def eval_scale_sweep(net, gt_root, scales=(2, 3, 8), device=None) -> dict:
     return out
 
 
+def load_weights(net, args, opt) -> None:
+    """Load into ``net``, strictly: ``--pth``, else ``--best``, else the
+    training checkpoint ``--step`` (the latest without it) in
+    ``path.models``. Sets ``args.weights_src`` and ``args.ckpt_step``."""
+    from stif_tpu_torch.convert import load_pth
+    from stif_tpu_torch.train.checkpoints import CheckpointManager
+    from stif_tpu_torch.train.validation import load_best_params
+
+    ckpt_dir = (opt.get("path") or {}).get("models")
+    if not (args.pth or ckpt_dir):
+        raise ValueError("no weights: pass --pth, or a config whose "
+                         "path.models holds a training run")
+    if args.pth:
+        load_pth(net, args.pth)
+        args.ckpt_step = args.step or -1
+        args.weights_src = args.pth
+        print(f"loaded weights from {args.pth}")
+        return
+    if args.best:
+        params, best = load_best_params(ckpt_dir)
+        args.ckpt_step = int(best["step"])
+        args.weights_src = best["path"]
+        print(f"loaded keep-best step {args.ckpt_step} "
+              f"(dev score {best['score']}) from {ckpt_dir}")
+    else:
+        ck = CheckpointManager(ckpt_dir).restore(args.step)
+        params = ck["params"]
+        args.ckpt_step = int(ck["step"])
+        args.weights_src = ckpt_dir
+        print(f"restored step {args.ckpt_step} from {ckpt_dir}")
+    net.load_state_dict(params, strict=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("-opt", required=True)
-    ap.add_argument("--pth", required=True,
+    ap.add_argument("--step", type=int, default=None,
+                    help="restore this training checkpoint (default: latest)")
+    ap.add_argument("--best", action="store_true",
+                    help="load the keep-best weights (best.json) instead of "
+                         "the latest full checkpoint")
+    ap.add_argument("--pth", default=None,
                     help="load weights from a reference-schema .pth export")
     ap.add_argument("--gather-dtype", default=None, choices=[None, "bf16"])
     ap.add_argument("--mlp-dtype", default=None, choices=[None, "bf16"])
@@ -178,7 +219,6 @@ def main(argv=None):
                          "per-family mean/std and bicubic baselines")
     args = ap.parse_args(argv)
 
-    from stif_tpu_torch.convert import load_pth
     from stif_tpu_torch.models.factory import define_g
     from stif_tpu_torch.runtime import InferencePipeline
     from stif_tpu_torch.runtime.eval import (eval_space_time_sr,
@@ -198,8 +238,7 @@ def main(argv=None):
     if args.stagec_dtype:
         opt["network_G"]["stagec_dtype"] = args.stagec_dtype
     net = define_g(opt)
-    load_pth(net, args.pth)  # strict
-    print(f"loaded weights from {args.pth}")
+    load_weights(net, args, opt)
 
     gt_root = build_eval_set(args.eval_root, n_scenes=args.scenes)
     baseline = bicubic_baseline(gt_root)
@@ -248,14 +287,25 @@ def main(argv=None):
 
     wide = None
     if args.wide:
+        from stif_tpu_torch.data.natural import (build_natural_eval_set,
+                                                 build_natural_eval_set_v2)
         from stif_tpu_torch.data.synthetic import render_eval_suite
 
         suite_root = render_eval_suite("runs/eval_suite")
+        # natural-photo families, when bundled photos are found: v1 the
+        # integer pan, v2 layered subpixel motion with occluding layers
+        fams = ("default", "occlusion", "lighting")
+        if build_natural_eval_set(suite_root):
+            fams += ("natural",)
+        if build_natural_eval_set_v2(suite_root):
+            fams += ("naturalv2",)
         wide = {}
-        for fam in ("default", "occlusion", "lighting"):
+        for fam in fams:
+            # prefix match, but 'natural' must not take 'naturalv2_*'
             folders = sorted(
                 d for d in os.listdir(suite_root)
                 if d.startswith(fam)
+                and not (fam == "natural" and d.startswith("naturalv2"))
                 and os.path.isdir(os.path.join(suite_root, d)))
             r = eval_space_time_sr(pipe, suite_root, folders=folders,
                                    times=(0.5, 0.0))
@@ -274,8 +324,9 @@ def main(argv=None):
 
     rec = {
         "protocol": "vid4_space_time_x4 (myutils.test_metric_full)",
-        "provenance": stamp(weights=args.pth, step=-1, config=args.opt),
-        "checkpoint_step": -1,
+        "provenance": stamp(weights=args.weights_src, step=args.ckpt_step,
+                            config=args.opt),
+        "checkpoint_step": args.ckpt_step,
         "gather_dtype": args.gather_dtype or "fp32",
         "mlp_dtype": args.mlp_dtype or "fp32",
         "stagec": {"nearest": args.stagec_nearest,

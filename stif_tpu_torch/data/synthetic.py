@@ -13,7 +13,9 @@ subpixel positions for any continuous time:
   * everything analytic in (y, x, t): no resampling artifacts in GT, exact
     subpixel displacement between frames.
 
-The training dataset over these scenes is not ported yet.
+``SyntheticVideoDataset`` draws training windows over these scenes (and,
+with ``natural_frac``, over the photographic scenes of
+``stif_tpu_torch.data.natural``), deterministic per (seed, index).
 """
 
 from __future__ import annotations
@@ -211,3 +213,128 @@ def render_eval_suite(root: str, n_per_family: int = 4, n_frames: int = 12,
                 img = (np.clip(clip[t], 0, 1) * 255).round().astype(np.uint8)
                 cv2.imwrite(os.path.join(d, f"{t:03d}.png"), img[..., ::-1])
     return root
+
+
+class SyntheticVideoDataset:
+    """x8-temporal windows over procedural scenes (AdobeDataset schema).
+
+    ``nt`` GT frames are drawn per sample at random window indices — times
+    DIFFER per sample, exercising the per-sample pe conditioning path.
+    """
+
+    def __init__(self, n_items: int = 20000, gt_size: int = 192,
+                 scale: int = 4, nt: int = 3, interval: int = 8,
+                 interval_choices=None, seed: int = 0, phase: str = "train",
+                 max_speed: float = 3.0, scale_plan=None,
+                 natural_frac: float = 0.0, **_ignored):
+        self.n_items = n_items
+        self.gt_size, self.scale = gt_size, scale
+        self.nt, self.interval = nt, interval
+        # per-sample random pair span (frames between the two inputs): the
+        # eval protocols query pairs at several motion magnitudes (the Vid4
+        # recipe's every-2nd-frame inputs span 2 frames; x8-temporal spans
+        # 8) — mixing spans at train time matches that distribution.
+        self.interval_choices = (list(interval_choices)
+                                 if interval_choices else None)
+        self.seed = seed
+        self.phase = phase
+        self.max_speed = max_speed
+        # Mixed-scale training (the reference's batch-level random-scale
+        # recipe, collate_function2 ``codes/data/__init__.py:124-154``, with
+        # a finite bucket plan as in ``collate_arbitrary_scale``). Each entry
+        # is [scale, lq_size]; one bucket is drawn PER BATCH (all samples
+        # share a shape) via ``load_batch``.
+        self.scale_plan = ([(int(s), int(lq)) for s, lq in scale_plan]
+                           if scale_plan else None)
+        # fraction of samples drawn from the layered photographic family
+        # (``data/natural.py``): subpixel affine + independent occluding
+        # layers — the real-video-statistics slice of the train distribution
+        self.natural_frac = float(natural_frac or 0.0)
+        # batch-level API only engages when a batch-level decision exists
+        self.use_load_batch = bool(self.scale_plan) or self.natural_frac > 0
+
+    def __len__(self):
+        return self.n_items
+
+    def _sample_scene(self, rng, g: int):
+        """Scene + a crop origin whose window stays on-canvas; with
+        ``natural_frac``, a per-sample draw picks the photographic family."""
+        if self.natural_frac > 0 and rng.random() < self.natural_frac:
+            from stif_tpu_torch.data.natural import (
+                find_natural_textures, sample_natural_scene)
+
+            if find_natural_textures():
+                margin = int(np.ceil(1.4 * self.max_speed * 8)) + 4
+                scene = sample_natural_scene(
+                    rng, min_canvas=(g + 2 * margin, g + 2 * margin),
+                    max_speed=self.max_speed)
+                Hc, Wc = scene["canvas"]
+                y0 = rng.uniform(margin, max(margin + 1, Hc - g - margin))
+                x0 = rng.uniform(margin, max(margin + 1, Wc - g - margin))
+                return scene, y0, x0
+        scene = sample_scene(rng, max_speed=self.max_speed)
+        Hc, Wc = scene["canvas"]
+        return scene, rng.uniform(0, Hc - g), rng.uniform(0, Wc - g)
+
+    def _render_item(self, index: int, scale: int, gt_size: int):
+        from stif_tpu_torch.data.datasets import host_imresize
+
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, int(index)]))
+        g = gt_size
+        scene, y0, x0 = self._sample_scene(rng, g)
+        render = render_frame
+        if scene.get("kind") == "natural":
+            from stif_tpu_torch.data.natural import render_natural_frame
+
+            render = render_natural_frame
+
+        k = self.interval  # input pair = frames (0, k)
+        if self.interval_choices:
+            k = int(rng.choice(self.interval_choices))
+        if self.phase == "train":
+            idx = np.sort(rng.choice(k + 1, size=min(self.nt, k + 1),
+                                     replace=False))
+            if idx.size < self.nt:  # k+1 < nt: pad by repeating times
+                idx = np.concatenate(
+                    [idx, idx[rng.integers(0, idx.size, self.nt - idx.size)]])
+                idx = np.sort(idx)
+        else:
+            idx = np.linspace(0, k, self.nt).round().astype(int)
+        times = idx.astype(np.float32) / k
+
+        gts = np.stack([
+            render(scene, float(i), (g, g), (y0, x0)) for i in idx
+        ])
+        lq0 = render(scene, 0.0, (g, g), (y0, x0))
+        lqk = render(scene, float(k), (g, g), (y0, x0))
+        lqs = host_imresize(np.stack([lq0, lqk]), 1.0 / scale)
+        return {
+            "LQs": np.ascontiguousarray(lqs.astype(np.float32)),
+            "GT": np.ascontiguousarray(gts),
+            "times": times,
+            "key": f"syn{self.seed}_{index}",
+        }
+
+    def __getitem__(self, index: int):
+        return self._render_item(index, self.scale, self.gt_size)
+
+    def load_batch(self, indices):
+        """Batch-level loading: draw ONE (scale, lq_size) bucket for the
+        whole batch (deterministic in (seed, indices)), render every sample
+        at that shape, and stack: the reference's batch-level random-scale
+        collate (``codes/data/__init__.py:63-121``) over a bucket plan:
+        per-batch scale, per-sample times."""
+        if self.scale_plan:
+            brng = np.random.default_rng(np.random.SeedSequence(
+                [self.seed, 1_000_003] + [int(i) for i in indices]))
+            s, lq = self.scale_plan[int(brng.integers(len(self.scale_plan)))]
+            g = s * lq
+        else:
+            s, g = self.scale, self.gt_size
+        samples = [self._render_item(int(i), s, g) for i in indices]
+        out = {k: (np.stack([smp[k] for smp in samples])
+                   if k != "key" else [smp[k] for smp in samples])
+               for k in samples[0]}
+        out["scale"] = s
+        return out

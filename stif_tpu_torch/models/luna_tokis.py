@@ -32,7 +32,7 @@ import torch
 import torch.nn as nn
 
 from stif_tpu_torch.models.registry import register_model
-from stif_tpu_torch.nn.blocks import Conv, ResidualTrunk, lrelu
+from stif_tpu_torch.nn.blocks import Conv, ResidualTrunk, lrelu, remat
 from stif_tpu_torch.nn.convlstm import BiDeformableConvLSTM
 from stif_tpu_torch.nn.pcd import PCDAlign
 from stif_tpu_torch.nn.siren import Siren
@@ -353,10 +353,12 @@ class LunaTokis(nn.Module):
         skip_hr = self._skip_source(inp_cat, (HH, WW), coords is None)
 
         if not local_ensemble:
-            rgb, _ = self._decode_pass(feat, inp_cat, hr_inp, coord, coord,
-                                       times, HH, WW,
-                                       identity_b=coords is None,
-                                       skip_hr=skip_hr)
+            # with grad on, the pass is recomputed in the backward instead
+            # of storing its gathered fields and SIREN activations (the JAX
+            # package's ``nn.remat(pass_fn)``); the same maths either way
+            rgb, _ = remat(self._decode_pass, feat, inp_cat, hr_inp, coord,
+                           coord, times, HH, WW, identity_b=coords is None,
+                           skip_hr=skip_hr)
             return rgb
 
         rx = 2.0 / H / 2.0

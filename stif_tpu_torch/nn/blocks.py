@@ -12,11 +12,24 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def lrelu(x: torch.Tensor) -> torch.Tensor:
     """LeakyReLU(0.1), the reference's activation."""
     return F.leaky_relu(x, negative_slope=0.1)
+
+
+def remat(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``; with grad mode on, under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward pass instead of stored, as the JAX package's
+    ``nn.remat``. Without grad it is a plain call. ``fn`` draws no random
+    numbers, so the RNG state is not stashed."""
+    if not torch.is_grad_enabled():
+        return fn(*args, **kwargs)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kwargs)
 
 
 class Conv(nn.Conv2d):

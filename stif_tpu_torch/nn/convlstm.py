@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from stif_tpu_torch.nn.blocks import Conv
+from stif_tpu_torch.nn.blocks import Conv, remat
 from stif_tpu_torch.nn.pcd import EasyPCD
 
 
@@ -37,15 +37,18 @@ class DeformableConvLSTM(nn.Module):
         self.pcd_c = EasyPCD(nf, groups, gather_dtype)
         self.cell_list = nn.ModuleList([ConvLSTMCell(nf)])
 
+    def _step(self, x_t: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+        return self.cell_list[0](x_t, (self.pcd_h(x_t, h), self.pcd_c(x_t, c)))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, T, H, W, _ = x.shape
         h = x.new_zeros(B, H, W, self.nf)
         c = x.new_zeros(B, H, W, self.nf)
         hs = []
         for t in range(T):
-            x_t = x[:, t]
-            h, c = self.cell_list[0](x_t, (self.pcd_h(x_t, h),
-                                           self.pcd_c(x_t, c)))
+            # with grad on, each step's two PCD pyramids are recomputed in
+            # the backward pass (the JAX package's ``nn.remat`` step)
+            h, c = remat(self._step, x[:, t], h, c)
             hs.append(h)
         return torch.stack(hs, 1)
 

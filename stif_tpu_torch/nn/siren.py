@@ -118,3 +118,12 @@ class Siren(nn.Module):
             h = round_to(torch.sin(self.omega0 * y), dt)
             y = h @ round_to(lin.weight.t(), dt) + lin.bias
         return round_to(y, dt)
+
+
+def set_fused(model: nn.Module, fused: bool) -> None:
+    """Turn the fused kernel on or off in every ``Siren`` of ``model``; a
+    net with ``split_first`` stays off, since the kernel has no split-K
+    form."""
+    for m in model.modules():
+        if isinstance(m, Siren):
+            m.fused = fused and not m.split_first

@@ -6,7 +6,9 @@ on every layer but the last, which is linear; fp32 throughout. On a CUDA
 tensor it launches the hand-written Hopper kernel ``csrc/siren_fused.cu``
 (the wide concatenated input and the hidden activations stay in shared
 memory) or raises; on a CPU tensor it computes the plain version,
-``siren_apply_fused_plain``. Nothing falls back from the kernel.
+``siren_apply_fused_plain``. Nothing falls back from the kernel. The kernel
+has no backward: on a CUDA tensor it raises when grad mode is on and an
+operand requires grad.
 
 The launch geometry is worked out here, by ``launch_plan``: rows per tile,
 how each layer's weights are cut into K-chunks for the kernel's
@@ -207,6 +209,15 @@ def siren_apply_fused(x, weights: Sequence[torch.Tensor],
         return siren_apply_fused_plain(xs, weights, biases, omega0)
     if dev.type != "cuda":
         raise ValueError(f"siren_apply_fused: unsupported device {dev}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in xs + list(weights) + list(biases)):
+        # the output is written through ctypes and has no autograd history:
+        # running here would silently cut every gradient upstream of the net
+        raise RuntimeError(
+            "siren_apply_fused: the fused kernel has no backward (nor has "
+            "the Pallas kernel it ports); call it under torch.no_grad() / "
+            "inference_mode() or on tensors that do not require grad. "
+            "Training builds its SIREN nets with fused=False.")
 
     lead = xs[0].shape[:-1]
     if not 1 <= len(xs) <= _MAX_FIELDS:

@@ -29,9 +29,8 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
-import torch
 
-from stif_tpu_torch.ops.resize import imresize
+from stif_tpu_torch.data.datasets import host_imresize
 from stif_tpu_torch.utils.metrics import (
     bgr2ycbcr,
     calculate_psnr,
@@ -91,17 +90,11 @@ def _crop(gt: np.ndarray, multiple: int) -> np.ndarray:
     return gt[:, :H, :W]
 
 
-def _host_imresize(frames: np.ndarray, scale: float) -> np.ndarray:
-    """MATLAB-bicubic resize of (T, H, W, 3) frames on the host."""
-    return imresize(torch.from_numpy(np.ascontiguousarray(
-        frames, np.float32)), scale).numpy()
-
-
 def _crop_and_degrade(gt: np.ndarray, multiple: int, downscale: float):
     """(gt, lr): gt cropped to multiples of ``multiple``, lr its
     MATLAB-bicubic ``downscale``."""
     gt = _crop(gt, multiple)
-    return gt, _host_imresize(gt, downscale)
+    return gt, host_imresize(gt, downscale)
 
 
 def append_logfile(logfile: str, epoch_id, iter_id, cost_s: float,
@@ -267,8 +260,8 @@ def _score_adobe_tmnet(pipeline, gt_full: np.ndarray):
     """One clip under the Adobe TMNet protocol. Returns (output index, psnr,
     ssim) per scored frame."""
     gt_full = _crop(gt_full, 32)
-    lr = _host_imresize(gt_full, 1 / 8)
-    gt = _host_imresize(gt_full, 1 / 2)
+    lr = host_imresize(gt_full, 1 / 8)
+    gt = host_imresize(gt_full, 1 / 2)
     times = [i / 6 for i in range(1, 6)]
     scores = []
     for i in range(0, gt.shape[0] - 18, 18):

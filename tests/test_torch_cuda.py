@@ -352,3 +352,64 @@ def test_round_to_fp8_saturates_on_the_card(cuda):
     got = round_to(x, torch.float8_e4m3fn).cpu()
     assert got.tolist() == [448.0, -448.0, 448.0, 448.0, 0.3125]
     assert torch.equal(got, round_to(x.cpu(), torch.float8_e4m3fn))
+
+
+# ---------------------------------------------------------------- training
+
+def test_kernel_refuses_grad_mode(cuda, rng):
+    """The kernel has no backward: with grad mode on and an operand that
+    requires grad it raises instead of returning an output with no history;
+    under ``no_grad`` / ``inference_mode``, or with no operand requiring
+    grad, it launches."""
+    splits, widths = NETS["flow_imnet"]
+    ws, bs = _net(rng, splits, widths, cuda)
+    xs = [torch.rand(256, c, device=cuda) for c in splits]
+    ws[1].requires_grad_(True)
+    before = siren_apply_fused.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        siren_apply_fused(xs, ws, bs)
+    assert siren_apply_fused.launches == before
+    with torch.no_grad():
+        siren_apply_fused(xs, ws, bs)
+    with torch.inference_mode():
+        siren_apply_fused(xs, ws, bs)
+    ws[1].requires_grad_(False)
+    xs[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="fused=False"):
+        siren_apply_fused(xs, ws, bs)
+    xs[0].requires_grad_(False)
+    siren_apply_fused(xs, ws, bs)
+    assert siren_apply_fused.launches == before + 3
+
+
+def test_train_step_on_the_card_matches_cpu(cuda, tmp_path):
+    """One ``VideoSRModel`` step from the same init at nf 8 (B 2, LR 8x8,
+    GT 32x32, nt 2) on the card and on the CPU: loss rtol 1e-4, grad norm
+    rtol 1e-3; the training step launches no kernel, ``test`` does."""
+    from stif_tpu_torch.train.video_sr_model import VideoSRModel
+
+    torch.backends.cudnn.allow_tf32 = False
+    opt = {"network_G": dict(which_model_G="LIIF", nf=8, nframes=6,
+                             groups=2, front_RBs=1, back_RBs=1,
+                             rgb_skip="bicubic"),
+           "train": dict(lr_G=1e-4, warmup_iter=-1, T_period=[100],
+                         restarts=[], restart_weights=[], grad_clip=1e6,
+                         ema_decay=0.999)}
+    rng = np.random.default_rng(0)
+    batch = {"LQs": rng.random((2, 2, 8, 8, 3)).astype(np.float32),
+             "GT": rng.random((2, 2, 32, 32, 3)).astype(np.float32),
+             "times": np.asarray([[0.0, 0.5], [1.0, 0.25]], np.float32)}
+    logs = []
+    for device in (cuda, "cpu"):
+        m = VideoSRModel(opt, device=device)
+        m.init_params(batch["LQs"], batch["times"], seed=3)
+        m.feed_data(batch)
+        before = siren_apply_fused.launches
+        logs.append(m.optimize_parameters())
+        if device == cuda:
+            assert siren_apply_fused.launches == before
+            m.test()
+            assert siren_apply_fused.launches == before + 3
+    gpu, cpu = logs
+    np.testing.assert_allclose(gpu["loss"], cpu["loss"], rtol=1e-4)
+    np.testing.assert_allclose(gpu["grad_norm"], cpu["grad_norm"], rtol=1e-3)

@@ -181,17 +181,142 @@ def test_eval_script_baselines_match_jax_script(tiny_checkpoint):
 
 
 def test_eval_script_flags(tiny_checkpoint):
-    """``--pth`` is required; ``--best``, ``--step`` and ``--platform`` are
-    not ported: refused, not accepted and ignored. Without ``--device cpu``
-    the script raises where there is no GPU."""
+    """Without ``--pth`` the weights come from ``path.models`` (``--best``,
+    ``--step``), which this config does not set: a ``ValueError``.
+    ``--platform`` is not ported: refused, not accepted and ignored.
+    Without ``--device cpu`` the script raises where there is no GPU."""
     root, cfg, pth = tiny_checkpoint
     main = _main(EVAL_SCRIPT)
+    for flag in ([], ["--best"], ["--step", "3"]):
+        with pytest.raises(ValueError, match="path.models"):
+            main(["-opt", str(cfg), "--scenes", "1", "--eval-root",
+                  str(root / "data2"), "--scale-sweep", "", "--device",
+                  "cpu"] + flag)
     with pytest.raises(SystemExit):
-        main(["-opt", str(cfg)])
-    for flag in (["--best"], ["--step", "3"], ["--platform", "cpu"]):
-        with pytest.raises(SystemExit):
-            main(["-opt", str(cfg), "--pth", str(pth)] + flag)
+        main(["-opt", str(cfg), "--pth", str(pth), "--platform", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             main(["-opt", str(cfg), "--pth", str(pth), "--scenes", "1",
                   "--eval-root", str(root / "data2"), "--scale-sweep", ""])
+
+
+# ----------------------------------------------------- scripts/train_torch.py
+
+TRAIN_SCRIPT = ROOT / "scripts" / "train_torch.py"
+TRAIN_YAML = """name: tiny_train
+use_tb_logger: true
+model: VideoSR_base
+scale: 4
+datasets:
+  train:
+    mode: Synthetic
+    n_items: 64
+    nt: 2
+    seed: 5
+    interval_choices: [2, 4]
+    batch_size: 2
+    GT_size: 32
+    scale_plan: [[4, 8], [2, 12]]
+    n_workers: 1
+  val:
+    n_scenes: 1
+    root: {root}/val
+network_G:
+  which_model_G: LIIF
+  nf: 8
+  nframes: 6
+  groups: 2
+  front_RBs: 1
+  back_RBs: 1
+  rgb_skip: bicubic
+path:
+  models: {root}/models
+train:
+  lr_G: !!float 1e-4
+  niter: 4
+  warmup_iter: 2
+  T_period: [100]
+  restarts: []
+  restart_weights: []
+  eta_min: !!float 1e-7
+  grad_clip: !!float 1e6
+  ema_decay: 0.9
+  val_freq: 4
+logger:
+  print_freq: 1
+  save_checkpoint_freq: 2
+"""
+
+
+@pytest.fixture(scope="module")
+def trained_run(tmp_path_factory):
+    """``train_torch.py --device cpu`` for 4 steps in a process of its own,
+    then ``--resume`` to step 6 in this one."""
+    root = tmp_path_factory.mktemp("train_script")
+    cfg = root / "tiny_train.yml"
+    cfg.write_text(TRAIN_YAML.format(root=root))
+    out = subprocess.run(
+        [sys.executable, str(TRAIN_SCRIPT), "-opt", str(cfg), "--device",
+         "cpu"], capture_output=True, text=True, timeout=900, cwd=root,
+        env=dict(os.environ, OMP_NUM_THREADS=str(NUM_THREADS)))
+    assert out.returncode == 0, out.stderr
+    first = sorted(os.listdir(root / "models"))
+    last = _main(TRAIN_SCRIPT)(["-opt", str(cfg), "--steps", "6",
+                                "--resume", "--device", "cpu"])
+    return root, cfg, first, last
+
+
+def test_train_script_runs_and_resumes(trained_run):
+    from stif_tpu_torch.utils.tb import read_events
+
+    root, _, first, last = trained_run
+    models = root / "models"
+    assert {"checkpoint_2.pth", "checkpoint_4.pth", "ema_params_4.pth",
+            "best.json", "val_curve.jsonl", "train.log"} <= set(first)
+    assert last == 6
+    log = (models / "train.log").read_text()
+    assert "resumed at step 4" in log and "done at step 6" in log
+    assert "step 5 loss" in log and "step 1 loss" in log
+    curve = [json.loads(line) for line in
+             (models / "val_curve.jsonl").read_text().splitlines()]
+    # keep-best seeded at step 0, then every val_freq, then at the end
+    assert [r["step"] for r in curve] == [0, 4, 6]
+    assert all(np.isfinite(r["score"]) for r in curve)
+    best = json.loads((models / "best.json").read_text())
+    assert os.path.exists(best["path"])
+    names = set(os.listdir(models))
+    assert {"checkpoint_6.pth", "ema_params_6.pth"} <= names
+    assert "ema_params_2.pth" not in names  # EMA kept two deep
+    tags = {e.get("tag") for f in os.listdir(models / "tb")
+            for e in read_events(str(models / "tb" / f))}
+    assert {"train/loss", "train/grad_norm", "val/score",
+            "val/ema_score"} <= tags
+
+
+def test_train_script_flags(trained_run, tmp_path):
+    """``--parallel`` is not ported: refused, not accepted and ignored.
+    Without ``--device cpu`` the script raises where there is no GPU."""
+    _, cfg, _, _ = trained_run
+    main = _main(TRAIN_SCRIPT)
+    with pytest.raises(SystemExit):
+        main(["-opt", str(cfg), "--parallel"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            main(["-opt", str(cfg), "--steps", "1"])
+
+
+@pytest.mark.parametrize("flag,step", [(["--best"], None),
+                                       (["--step", "4"], 4), ([], 6)])
+def test_eval_script_reads_the_run(trained_run, flag, step):
+    """``--best`` loads the keep-best weights, ``--step`` a checkpoint,
+    nothing the latest checkpoint; the record names the step."""
+    root, cfg, _, _ = trained_run
+    rec = _main(EVAL_SCRIPT)(["-opt", str(cfg), "--scenes", "1",
+                              "--eval-root", str(root / "eval"),
+                              "--scale-sweep", "", "--device", "cpu"]
+                             + flag)
+    best = json.loads((root / "models" / "best.json").read_text())
+    want = best["step"] if step is None else step
+    assert rec["checkpoint_step"] == want
+    assert rec["provenance"]["weights_step"] == want
+    assert np.isfinite(rec["mean_psnr_y"])

@@ -1,7 +1,8 @@
 """The port stands alone: importing ``stif_tpu_torch`` and every submodule
 loads no ``jax``, ``flax`` or ``stif_tpu`` module, and no source of the port
-(or ``chip_smoke.py``, or the port's scripts ``scripts/test_video_torch.py``
-and ``scripts/eval_model_torch.py``) imports one."""
+(or ``chip_smoke.py``, or the port's scripts ``scripts/test_video_torch.py``,
+``scripts/eval_model_torch.py`` and ``scripts/train_torch.py``) imports
+one."""
 
 import re
 import subprocess
@@ -31,7 +32,7 @@ def test_import_loads_no_jax():
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.strip().splitlines()
-    assert int(n_modules) >= 37
+    assert int(n_modules) >= 51
     assert bad == "[]"
 
 
@@ -42,8 +43,9 @@ def test_sources_import_no_jax():
     sources = sorted((ROOT / "stif_tpu_torch").rglob("*.py"))
     sources += [ROOT / "chip_smoke.py",
                 ROOT / "scripts" / "test_video_torch.py",
-                ROOT / "scripts" / "eval_model_torch.py"]
-    assert len(sources) >= 41
+                ROOT / "scripts" / "eval_model_torch.py",
+                ROOT / "scripts" / "train_torch.py"]
+    assert len(sources) >= 56
     for path in sources:
         hits = pattern.findall(path.read_text())
         assert not hits, f"{path} imports {hits}"
