@@ -56,7 +56,7 @@ Run from the root of a checkout. In order:
 8. training at the full width of ``configs/train_synthetic_r5.yml`` (the
    options built as a dict, weights from ``nn/init.py`` under seed 0):
    a. ``VideoSRModel`` on ``create_train_dataset``'s batches at the x4, x2
-      and x8 buckets (B 4, nt 3): 2 warm-up and 10 timed steps each, per
+      and x8 buckets (B 4, nt 3): 2 warm-up and 6 timed steps each, per
       step the bucket, loss and grad norm; then ms per step by CUDA events
       (median, min, max), the forward / backward / optimizer split,
       samples/s, peak memory, and at x4 one profiled step's top kernels and
@@ -72,6 +72,25 @@ Run from the root of a checkout. In order:
       ``best.json`` read back by ``eval_model_torch``'s ``--best`` loader;
    f. ``scripts/train_torch.py``'s ``run`` for 20 steps (validation and
       checkpoints every 10), then resumed to 25;
+9. parallelism and streaming:
+   a. the data-parallel train step (DDP over NCCL at world size 1, started
+      in this process on a free port) against the single-process step from
+      the same seed-0 init, r5 config at full width, x4 bucket, 3 steps:
+      loss within rtol 1e-5, grad norm within rtol 1e-4, the largest
+      per-parameter gap; then ms per step of each, median of 5 alternating;
+   b. ``python -m torch.distributed.run --nproc_per_node 1
+      scripts/train_torch.py --parallel`` for 6 steps (checkpoint at 5),
+      then resumed without ``--parallel`` to 8: both exit 0;
+   c. ``ChunkedDecoder`` over a mesh of two handles of ``cuda:0`` (n_par 2)
+      against one device on the main path's window (max|d| <= 1e-5, 12
+      launches), and ``default_mesh()`` (size 1) bitwise equal to no mesh;
+   d. ``render_sequence`` of 5 frames (4 pairs) double-buffered against
+      ``render_window`` of each pair back to back: bitwise equal, 12
+      launches, ms per pair both ways (3 alternating runs);
+   e. ``backward_warp``, ``warp_grid_coords`` and ``deform_psroi_pool`` on
+      the card against the CPU (<= 1e-5); the native host resize, built
+      here with ``g++``, against its plain version (<= 1e-5) and ms per
+      1080p frame both ways;
 6. the ``kernels`` JSON line (launches summed over every path driven), then
    the result line.
 
@@ -1002,7 +1021,7 @@ def zoo_phase(card: str, device) -> int:
 # ----------------------------------------------------------------- phase 8
 
 TRAIN_BUCKETS = ((4, 48), (2, 48), (8, 24))  # (scale, LR size): GT 192, 96
-WARM_STEPS, TIMED_STEPS = 2, 10
+WARM_STEPS, TIMED_STEPS = 2, 6
 STEP_LOSS_RTOL, STEP_GNORM_RTOL = 1e-4, 1e-3  # [8c], card vs CPU
 RESUME_RTOL = 1e-5                             # [8d], next loss after resume
 
@@ -1304,6 +1323,285 @@ def train_phase(card: str, device) -> int:
     return count.total
 
 
+# ----------------------------------------------------------------- phase 9
+
+DDP_LOSS_RTOL, DDP_GNORM_RTOL = 1e-5, 1e-4   # [9a], DDP vs one process
+MESH_BAR = 1e-5                               # [9c], [9e]
+SEQ_FRAMES = 5                                # [9d]: 4 pairs
+
+
+def ddp_phase(opt: dict, card: str) -> None:
+    """[9a]: the data-parallel step at world size 1 over NCCL against the
+    single-process step from the same init, then both timed."""
+    import torch
+    import torch.distributed as dist
+    from stif_tpu_torch.parallel.distributed import free_port
+    from stif_tpu_torch.train.video_sr_model import VideoSRModel
+
+    fixed = with_buckets(opt, [TRAIN_BUCKETS[0]])
+    gen = batches(fixed)
+    data = [next(gen) for _ in range(3)]
+    gen.close()
+    port = free_port()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        models = {}
+        for name, parallel in (("ddp", True), ("one", False)):
+            m = VideoSRModel(fixed, parallel=parallel)
+            m.init_params(data[0]["LQs"], data[0]["times"], seed=0)
+            models[name] = m
+        for i, batch in enumerate(data):
+            logs = {}
+            for name, m in models.items():
+                m.feed_data(batch)
+                logs[name] = m.optimize_parameters()
+            d_loss = abs(logs["ddp"]["loss"] - logs["one"]["loss"]) / abs(
+                logs["one"]["loss"])
+            d_norm = abs(logs["ddp"]["grad_norm"] - logs["one"]["grad_norm"]
+                         ) / abs(logs["one"]["grad_norm"])
+            log(f"  step {i + 1}: loss {logs['ddp']['loss']:.4f} (DDP) / "
+                f"{logs['one']['loss']:.4f}, grad norm "
+                f"{logs['ddp']['grad_norm']:.2f} / "
+                f"{logs['one']['grad_norm']:.2f}")
+            require("loss, DDP vs one process, relative", d_loss,
+                    d_loss <= DDP_LOSS_RTOL)
+            require("grad norm, DDP vs one process, relative", d_norm,
+                    d_norm <= DDP_GNORM_RTOL)
+        a = models["ddp"].net.state_dict()
+        worst = max(((k, (a[k] - v).abs().max().item()) for k, v in
+                     models["one"].net.state_dict().items()),
+                    key=lambda r: r[1])
+        log(f"  largest per-parameter gap after step 3: {worst[0]}: "
+            f"{worst[1]:.3e}")
+        ms = {"ddp": [], "one": []}
+        for _ in range(5):
+            for name, m in models.items():
+                m.feed_data(data[0])
+                ms[name].append(timed_step(m)[1]["step"])
+        log(f"  ms per step, median of 5 alternating, x4 bucket B 4: DDP "
+            f"{np.median(ms['ddp']):.1f} (runs "
+            f"{', '.join(f'{v:.1f}' for v in ms['ddp'])}), one process "
+            f"{np.median(ms['one']):.1f} (runs "
+            f"{', '.join(f'{v:.1f}' for v in ms['one'])}) [{card}]")
+    finally:
+        dist.destroy_process_group()
+    del models
+    torch.cuda.empty_cache()
+
+
+def torchrun_phase(opt: dict, tmp: str, card: str) -> None:
+    """[9b]: ``scripts/train_torch.py --parallel`` under
+    ``torch.distributed.run`` for 6 steps (checkpoint at 5), then resumed
+    without ``--parallel`` to 8."""
+    import copy
+    import os
+
+    from stif_tpu_torch.parallel.distributed import free_port
+
+    run_opt = copy.deepcopy(with_buckets(opt, [TRAIN_BUCKETS[0]]))
+    run_opt["path"]["models"] = f"{tmp}/torchrun"
+    run_opt["train"]["val_freq"] = 0
+    run_opt["use_tb_logger"] = False
+    run_opt["logger"].update(print_freq=1, save_checkpoint_freq=5)
+    cfg = Path(tmp) / "torchrun.json"
+    cfg.write_text(json.dumps(run_opt))
+    script = str(ROOT / "scripts" / "train_torch.py")
+    cmds = [
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         "1", "--master_addr", "localhost", "--master_port",
+         str(free_port()), script, "--parallel", "-opt", str(cfg),
+         "--steps", "6"],
+        [sys.executable, script, "-opt", str(cfg), "--steps", "8",
+         "--resume"]]
+    for what, cmd in zip(("torch.distributed.run ... --parallel, 6 steps",
+                          "resumed without --parallel to 8"), cmds):
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=300, env=dict(os.environ))
+        if out.returncode != 0:
+            raise AssertionError(f"{what}: exit {out.returncode}\n"
+                                 f"{out.stderr[-4000:]}")
+        log(f"  {what}: exit 0 in {time.perf_counter() - t0:.1f} s [{card}]")
+    text = (Path(tmp) / "torchrun" / "train.log").read_text()
+    for want in ("checkpoint @ 5", "done at step 6", "resumed at step 6",
+                 "done at step 8"):
+        if want not in text:
+            raise AssertionError(f"train.log lacks '{want}'")
+    for line in text.splitlines():
+        if " step " in line:
+            log("    " + line.split(" INFO ")[-1])
+
+
+def parallel_phase(card: str, device) -> int:
+    """Phases 9a-9e. Returns the SIREN launches of every path driven."""
+    import tempfile
+
+    import torch
+    from stif_tpu_torch.data import native
+    from stif_tpu_torch.data.datasets import host_imresize
+    from stif_tpu_torch.ops import backward_warp, warp_grid_coords
+    from stif_tpu_torch.ops.psroi_pool import deform_psroi_pool
+    from stif_tpu_torch.parallel import default_mesh, make_mesh
+    from stif_tpu_torch.runtime import ChunkedDecoder, InferencePipeline
+
+    count = Launches()
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory()
+    opt = r5_opt(f"{tmp.name}/models", f"{tmp.name}/val")
+
+    log("[9a] data-parallel train step (DDP, NCCL, world size 1) vs one "
+        "process, r5 config at full width, x4 bucket (B 4, LR 48, GT 192, "
+        "nt 3), seed-0 weights, 3 steps")
+    count.run("DDP train steps", 0, lambda: ddp_phase(opt, card))
+
+    log("[9b] scripts/train_torch.py --parallel under torch.distributed.run")
+    torchrun_phase(opt, tmp.name, card)
+
+    log("[9c] ChunkedDecoder over a mesh of two handles of cuda:0 (n_par 2) "
+        f"vs one device, trained weights, LR {LR_HW[0]}x{LR_HW[1]}, "
+        f"{N_TIMES} times, x{SCALE}, chunk {CHUNK}")
+    model = deployed_model().to(device).eval()
+    rng = np.random.default_rng(0)
+    frames = rng.random((SEQ_FRAMES,) + LR_HW + (3,)).astype(np.float32)
+    times = [i / N_TIMES for i in range(N_TIMES)]
+    HH, WW = LR_HW[0] * SCALE, LR_HW[1] * SCALE
+    x = torch.from_numpy(frames[None, :2]).to(device)
+    t = torch.tensor(times, device=device)
+    with torch.inference_mode():
+        feat = model.gen_feat(x)
+    steps = -(-HH * WW // CHUNK)
+    one = ChunkedDecoder(model, CHUNK)
+    mesh = make_mesh({"model": 2}, [torch.device("cuda", 0)] * 2)
+    two = ChunkedDecoder(model, CHUNK, mesh=mesh)
+    if two.n_par != 2:
+        raise AssertionError(f"n_par {two.n_par}")
+    want = count.run("ChunkedDecoder, one device", 3 * steps,
+                     lambda: one.decode(feat, x, t, (HH, WW)))
+    C = min(CHUNK, -(-HH * WW // 2))
+    mesh_chunks = 2 * -(-HH * WW // (2 * C))
+    got = count.run("ChunkedDecoder, mesh n_par 2", 3 * mesh_chunks,
+                    lambda: two.decode(feat, x, t, (HH, WW)))
+    d = max_abs(got, want)
+    require(f"mesh ({mesh_chunks // 2} steps of 2 x {C} queries) vs one "
+            "device, max|d|", d, d <= MESH_BAR)
+    size1 = ChunkedDecoder(model, CHUNK, mesh=default_mesh())
+    same = count.run("ChunkedDecoder, default_mesh() of size 1", 3 * steps,
+                     lambda: size1.decode(feat, x, t, (HH, WW)))
+    if size1.n_par != 1 or not np.array_equal(same, want):
+        raise AssertionError("a mesh of size 1 differs from no mesh")
+    log("  default_mesh() (size 1) output bitwise equal to no mesh")
+    runs, peak = count.run(
+        "ChunkedDecoder mesh, timed", TIMED_RUNS * 3 * mesh_chunks,
+        lambda: timed(lambda: two.decode(feat, x, t, (HH, WW))))
+    runs1, _ = count.run(
+        "ChunkedDecoder one device, timed", TIMED_RUNS * 3 * steps,
+        lambda: timed(lambda: one.decode(feat, x, t, (HH, WW))))
+    log(f"  mesh n_par 2 {fmt_runs(runs)}, peak {peak:.2f} GiB; one device "
+        f"{fmt_runs(runs1)} [{card}]")
+    del feat, one, two, size1
+
+    log(f"[9d] render_sequence, {SEQ_FRAMES} frames ({SEQ_FRAMES - 1} "
+        f"pairs) at LR {LR_HW[0]}x{LR_HW[1]}, {N_TIMES} times, x{SCALE}: "
+        "double-buffered vs back to back")
+    pipe = InferencePipeline(model)
+    pairs = SEQ_FRAMES - 1
+
+    def back_to_back():
+        return [pipe.render_window(frames[i:i + 2], times)
+                for i in range(pairs)]
+
+    seq = count.run("render_sequence", 3 * pairs,
+                    lambda: pipe.render_sequence(frames, N_TIMES))
+    ref = count.run("render_window x 4", 3 * pairs, back_to_back)
+    if len(seq) != pairs or not all(np.array_equal(a, b)
+                                    for a, b in zip(seq, ref)):
+        raise AssertionError("render_sequence differs from the windows")
+    log(f"  {pairs} pairs, each {seq[0].shape}, bitwise equal to "
+        f"render_window back to back; {3 * pairs} launches each way")
+    ms = {"double-buffered": [], "back to back": []}
+    for _ in range(3):
+        for name, fn in (("double-buffered",
+                          lambda: pipe.render_sequence(frames, N_TIMES)),
+                         ("back to back", back_to_back)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            count.run(name, 3 * pairs, fn)
+            ms[name].append(1e3 * (time.perf_counter() - t0) / pairs)
+    log("  ms per pair, 3 alternating runs: " + "; ".join(
+        f"{k} min {min(v):.1f}, median {np.median(v):.1f} (runs "
+        f"{', '.join(f'{r:.1f}' for r in v)})" for k, v in ms.items())
+        + f" [{card}]")
+    del pipe, model, seq, ref
+    torch.cuda.empty_cache()
+
+    log("[9e] warp ops, the native resize, deform_psroi_pool: card vs CPU")
+    g = torch.Generator().manual_seed(9)
+    # a smooth 64-channel field (a few cycles across the frame, as warped
+    # features and frames are): the card's and the CPU's bilinear weights
+    # differ by an ulp of the pixel coordinate (6.1e-5 at 512-1023 px), so
+    # on white noise the two differ by up to that much; reported beside
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, HH), torch.linspace(0, 1, WW),
+                            indexing="ij")
+    fx, fy, ph = (torch.rand(3, 64, generator=g) * torch.tensor(
+        [[3.0], [2.0], [6.283]]))
+    img = 0.5 + 0.5 * torch.sin(xx[..., None] * fx * 6.283
+                                + yy[..., None] * fy * 6.283 + ph)[None]
+    noise = torch.rand(1, HH, WW, 64, generator=g)
+    flow = torch.randn(1, HH, WW, 2, generator=g) * 5
+    d_warp, d_noise = (max_abs(backward_warp(v.to(device),
+                                             flow.to(device)).cpu(),
+                               backward_warp(v, flow)) for v in (img, noise))
+    coords = torch.rand(1, HH * WW, 2, generator=g) * 2 - 1
+    qflow = torch.randn(1, HH * WW, 2, generator=g) * 5
+    d_coords = max_abs(warp_grid_coords(coords.to(device), qflow.to(device),
+                                        HH, WW).cpu(),
+                       warp_grid_coords(coords, qflow, HH, WW))
+    frame = np.random.default_rng(3).random((1080, 1920, 3)).astype(
+        np.float32)
+    t0 = time.perf_counter()
+    native.host_imresize(frame, 0.25)  # builds the library on first use
+    log(f"  native library ready in {time.perf_counter() - t0:.2f} s, "
+        f"{native.num_threads()} threads")
+    res = {}
+    for name, fn in (("native", native.host_imresize),
+                     ("plain", host_imresize)):
+        runs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res[name] = fn(frame, 0.25)
+            runs.append(1e3 * (time.perf_counter() - t0))
+        res[name + "_ms"] = runs
+    d_native = max_abs(res["native"], res["plain"])
+    log(f"  ms per 1080p frame (x1/4): native {min(res['native_ms']):.1f} "
+        f"(runs {', '.join(f'{v:.1f}' for v in res['native_ms'])}), plain "
+        f"{min(res['plain_ms']):.1f} (runs "
+        f"{', '.join(f'{v:.1f}' for v in res['plain_ms'])}) [{card}]")
+    G, P, O = 7, 7, 8
+    feats = torch.randn(2, 64, 64, O * G * G, generator=g)
+    lo = torch.rand(32, 2, generator=g) * 40
+    rois = torch.cat([torch.randint(0, 2, (32, 1), generator=g).float(), lo,
+                      lo + 4 + torch.rand(32, 2, generator=g) * 20], 1)
+    trans = torch.randn(32, 1, 2, P, P, generator=g)
+    kw = dict(pooled_size=P, output_dim=O, group_size=G, sample_per_part=4,
+              trans_std=0.1, spatial_scale=0.5)
+    got, gcnt = deform_psroi_pool(feats.to(device), rois.to(device),
+                                  trans.to(device), **kw)
+    want, wcnt = deform_psroi_pool(feats, rois, trans, **kw)
+    d_psroi = max_abs(got.cpu(), want)
+    log(f"  backward_warp on white noise (no bar), max|d|: {d_noise:.3e}")
+    require(f"backward_warp (1, {HH}, {WW}, 64), smooth field, max|d|",
+            d_warp, d_warp <= MESH_BAR)
+    require(f"warp_grid_coords ({HH * WW} queries), max|d|", d_coords,
+            d_coords <= MESH_BAR)
+    require("native host_imresize vs plain, 1080x1920 -> 270x480, max|d|",
+            d_native, d_native <= MESH_BAR)
+    require("deform_psroi_pool (32 rois, 7x7 bins, 392 channels), max|d|",
+            d_psroi, d_psroi <= MESH_BAR and torch.equal(gcnt.cpu(), wcnt))
+    tmp.cleanup()
+    return count.total
+
+
 def train_state(model) -> dict:
     """What a resume must restore: step, params, Adam moments, EMA (copies
     on the card)."""
@@ -1389,6 +1687,10 @@ def main() -> int:
     launches += zoo_phase(card, device)
 
     launches += train_phase(card, device)
+
+    t9 = time.perf_counter()
+    launches += parallel_phase(card, device)
+    log(f"    phase 9: {time.perf_counter() - t9:.1f} s")
 
     kernels = {"kernels": [{
         "name": "siren_fused",

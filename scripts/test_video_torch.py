@@ -9,13 +9,18 @@ degradation, renders ``--times`` intermediate frames per adjacent pair at
 
 Usage:
   python scripts/test_video_torch.py --input video_sequences/ --output output/ \
-      [--checkpoint latest_G.pth] [--times 8] [--scale 4] [--device cuda]
+      [--checkpoint latest_G.pth | --params params_N.pth] [--times 8] \
+      [--scale 4] [--device cuda]
 
 Runs on a CUDA GPU and raises when there is none; ``--device cpu`` runs on
 the CPU. The model is ``LunaTokis()`` as ``scripts/test_video.py`` builds it
 (nf 64, 5 + 40 residual blocks, the reference's absolute-RGB head), the form
 a reference ``latest_G.pth`` was trained in. Like its counterpart it has no
 flag for the ``rgb_skip`` head, which shares the parameter schema.
+``--params`` reads weights written by the port's trainer
+(``train/checkpoints.py``: a ``params_<step>.pth`` / ``ema_params_<step>.pth``
+state dict, or the params of a ``checkpoint_<step>.pth``), where the JAX
+script reads an orbax directory.
 """
 
 import argparse
@@ -32,7 +37,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--input", required=True)
     ap.add_argument("--output", default="output")
-    ap.add_argument("--checkpoint", default=None, help=".pth weights")
+    weights = ap.add_mutually_exclusive_group()
+    weights.add_argument("--checkpoint", default=None,
+                         help="reference-schema .pth weights")
+    weights.add_argument("--params", default=None,
+                         help="weights written by the port's trainer")
     ap.add_argument("--times", type=int, default=8)
     ap.add_argument("--scale", type=int, default=4)
     ap.add_argument("--folders", nargs="*", default=None)
@@ -54,6 +63,12 @@ def main(argv=None):
     model = LunaTokis()
     if args.checkpoint:
         load_pth(model, args.checkpoint)
+    elif args.params:
+        from stif_tpu_torch.train.checkpoints import load_params
+
+        state = load_params(args.params)
+        # a full checkpoint holds the params beside the optimizer state
+        model.load_state_dict(state.get("params", state), strict=True)
     else:
         print("WARNING: no weights given — running with random init")
     pipe = InferencePipeline(model, scale=args.scale, device=args.device)

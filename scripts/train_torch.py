@@ -5,6 +5,8 @@
 Usage:
   python scripts/train_torch.py -opt configs/train_synthetic_r5.yml \
       [--steps N] [--resume] [--device cuda|cpu]
+  python -m torch.distributed.run --nproc_per_node N \
+      scripts/train_torch.py --parallel -opt CONFIG.yml [...]
 
 Reads the reference-schema YAML, builds the dataset, the loader and
 ``VideoSRModel``, and runs the train loop: parameters drawn from the first
@@ -18,6 +20,14 @@ probe of the starting weights; the EMA weights are probed beside the raw
 ones and the better of the two is kept. Runs on a CUDA GPU and raises
 where there is none unless ``--device cpu`` is given. ``run`` is the body,
 callable with an options dict.
+
+``--parallel`` trains data-parallel, one process per device, under
+``torch.distributed.run`` (it reads ``RANK``, ``WORLD_SIZE`` and
+``LOCAL_RANK``; NCCL between cards, gloo with ``--device cpu``): each
+rank's loader takes every ``world``-th index of the sampler and
+``batch_size / world`` samples per batch, so that the ranks' shares make
+up the global batch of world size 1. Rank 0 writes ``train.log``, the
+tensorboard events, the checkpoints and runs the validation probes.
 """
 
 import argparse
@@ -32,19 +42,26 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 
 
-def run(opt: dict, steps=None, resume: bool = False, device=None) -> int:
+def run(opt: dict, steps=None, resume: bool = False, device=None,
+        parallel: bool = False) -> int:
     """Train by the options dict ``opt`` (the schema of the YAML configs)
     up to ``steps`` (default ``train.niter``); ``resume`` continues from the
-    latest checkpoint in ``path.models``. Returns the last step."""
+    latest checkpoint in ``path.models``; ``parallel`` trains
+    data-parallel over the process group (see the module's docstring).
+    Returns the last step."""
     from stif_tpu_torch.data.datasets import create_train_dataset
     from stif_tpu_torch.data.loader import DataLoader, ShardedIterSampler
+    from stif_tpu_torch.parallel.distributed import barrier
     from stif_tpu_torch.train.video_sr_model import VideoSRModel
 
-    model = VideoSRModel(opt, device=device)  # raises first without a GPU
+    # raises first without a GPU
+    model = VideoSRModel(opt, device=device, parallel=parallel)
+    main_rank = model.rank == 0
+    sync = barrier if parallel else (lambda: None)
     log = logging.getLogger("base")
     models_dir = (opt.get("path") or {}).get("models")
     handler = None
-    if models_dir:
+    if models_dir and main_rank:
         os.makedirs(models_dir, exist_ok=True)
         handler = logging.FileHandler(os.path.join(models_dir, "train.log"))
         handler.setFormatter(logging.Formatter(
@@ -54,7 +71,7 @@ def run(opt: dict, steps=None, resume: bool = False, device=None) -> int:
     niter = int(steps or opt["train"]["niter"])
 
     tb = None
-    if opt.get("use_tb_logger") and models_dir:
+    if opt.get("use_tb_logger") and models_dir and main_rank:
         from stif_tpu_torch.utils.tb import TBWriter
 
         tb = TBWriter(os.path.join(models_dir, "tb"))
@@ -62,9 +79,15 @@ def run(opt: dict, steps=None, resume: bool = False, device=None) -> int:
 
     dopt = opt["datasets"]["train"]
     ds, collate = create_train_dataset(opt)
-    loader = DataLoader(ds, batch_size=int(dopt.get("batch_size", 18)),
+    batch_size = int(dopt.get("batch_size", 18))
+    if batch_size % model.world:
+        raise ValueError(f"batch_size {batch_size} does not divide over "
+                         f"{model.world} ranks")
+    loader = DataLoader(ds, batch_size=batch_size // model.world,
                         collate=collate,
-                        sampler=ShardedIterSampler(len(ds), ratio=100))
+                        sampler=ShardedIterSampler(
+                            len(ds), ratio=100, world_size=model.world,
+                            rank=model.rank))
     # init from the first batch; it is trained on too (chained back in
     # front of its epoch)
     gen = loader.epoch(0)
@@ -96,7 +119,7 @@ def run(opt: dict, steps=None, resume: bool = False, device=None) -> int:
 
         val_freq = int(float((opt.get("train") or {}).get("val_freq", 0) or 0))
         validator = best = None
-        if val_freq and models_dir:
+        if val_freq and models_dir and main_rank:
             from stif_tpu_torch.train.validation import BestTracker, Validator
 
             vopt = (opt.get("datasets") or {}).get("val") or {}
@@ -141,6 +164,7 @@ def run(opt: dict, steps=None, resume: bool = False, device=None) -> int:
         # warm-started run never selects a probe worse than its start
         if validator and best.best is None:
             run_validation(start)
+        sync()
 
         step, epoch, t0 = start, 0, time.time()
         while step < niter:
@@ -163,8 +187,10 @@ def run(opt: dict, steps=None, resume: bool = False, device=None) -> int:
                 if ckpt_freq and step % ckpt_freq == 0 and model.ckpt:
                     model.save()
                     log.info("checkpoint @ %d", step)
-                if validator and step % val_freq == 0:
-                    run_validation(step)
+                if val_freq and step % val_freq == 0:
+                    if validator:
+                        run_validation(step)
+                    sync()
                     t0 = time.time()  # val time is not counted in it/s
                 if step >= niter:
                     break
@@ -176,6 +202,7 @@ def run(opt: dict, steps=None, resume: bool = False, device=None) -> int:
             model.save()
         if validator and step % val_freq != 0:
             run_validation(step)
+        sync()
         log.info("done at step %d", step)
         return step
     finally:
@@ -195,6 +222,9 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--parallel", action="store_true",
+                    help="data parallel, one process per device, under "
+                         "python -m torch.distributed.run")
     args = ap.parse_args(argv)
 
     from stif_tpu_torch.utils.config import parse_options
@@ -202,7 +232,15 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     opt = parse_options(args.opt, is_train=True)
-    return run(opt, steps=args.steps, resume=args.resume, device=args.device)
+    try:
+        return run(opt, steps=args.steps, resume=args.resume,
+                   device=args.device, parallel=args.parallel)
+    finally:
+        if args.parallel:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -11,10 +11,18 @@
     scan; 3 random GT times per window; raw uint8 arrays, the scale
     augmentation left to the batch collate.
 
-Image folders are read with cv2. The JAX package's lmdb and memcached
-backends are not ported yet (ROADMAP Queue 1 item 12): asking for them
-raises ``NotImplementedError``. Roots and lists are arguments: no
-hardcoded paths.
+Backends of ``Vimeo7Dataset``: image folders read with cv2; an lmdb
+backend with the reference's key / blob schema
+(``codes/data/Vimeo7_dataset.py:70-109, 171, 185``: key ``{a}_{b}_{frame}``,
+raw uint8 HWC blobs at a fixed size) served by the dependency-free reader
+``data.lmdb_io``; and a memcached backend (PNG values by path key, with an
+optional ``<root>_B/_G/_R`` single-channel split for memcached's 1 MB value
+limit) through ``data.memcache``: the reference's ``mc`` branch with its
+call-arity bug (``Vimeo7_dataset.py:168``) fixed, as in the JAX package.
+Memcached keys are full paths ``<root>/<a>/<b>/im{i}.png`` (and
+``<root>_B/_G/_R/...`` for the split), for LQ and GT alike: the JAX
+package's scheme, since the reference's own is unreachable in its code.
+Roots and lists are arguments: no hardcoded paths.
 """
 
 from __future__ import annotations
@@ -22,13 +30,11 @@ from __future__ import annotations
 import os
 import os.path as osp
 import random
+import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
-
-_NOT_PORTED = ("the {} backend of Vimeo7Dataset is not ported yet (ROADMAP "
-               "Queue 1 item 12: data/lmdb_io.py, data/memcache.py)")
 
 
 def host_imresize(img: np.ndarray, scale: float) -> np.ndarray:
@@ -53,11 +59,22 @@ def _read_img(path: str) -> np.ndarray:
     return img[..., :3]
 
 
+def _read_img_lmdb(env, key: str, size) -> np.ndarray:
+    """Raw uint8 HWC blob by key (``data/util.py::_read_img_lmdb``)."""
+    buf = env.get(key.encode("ascii"))
+    if buf is None:
+        raise KeyError(f"lmdb key not found: {key}")
+    c, h, w = size
+    return np.frombuffer(buf, np.uint8).reshape(h, w, c)
+
+
 class Vimeo7Dataset:
-    """Septuplet folders: ``root/<a>/<b>/im{1..7}.png``.
+    """Septuplets: ``root/<a>/<b>/im{1..7}.png`` (``data_type`` 'img'),
+    lmdb blobs keyed ``<a>_<b>_<frame>`` ('lmdb') or PNGs in memcached
+    ('mc', explicit ``keys`` needed).
 
     Returns dict with ``LQs`` (N_in, h, w, 3), ``GT`` (N_out, H, W, 3) float32
-    RGB, NHWC, plus ``times`` and ``key``. ``data_type`` 'img' only.
+    RGB, NHWC, plus ``times`` and ``key``.
     """
 
     def __init__(self, gt_root: str, lq_root: Optional[str] = None,
@@ -66,13 +83,24 @@ class Vimeo7Dataset:
                  random_reverse: bool = False, use_flip: bool = True,
                  use_rot: bool = True, keys: Optional[List[str]] = None,
                  phase: str = "train", seed: Optional[int] = None,
-                 data_type: str = "img"):
-        if data_type in ("lmdb", "mc"):
-            raise NotImplementedError(_NOT_PORTED.format(data_type))
-        if data_type != "img":
+                 data_type: str = "img", gt_shape=(3, 256, 448),
+                 mc_host: str = "127.0.0.1", mc_port: int = 11211,
+                 mc_channel_split: bool = False):
+        if data_type not in ("img", "lmdb", "mc"):
             raise ValueError(f"Wrong data type: {data_type}")
         self.gt_root, self.lq_root = gt_root, lq_root or gt_root
         self.data_type = data_type
+        self.mc_host, self.mc_port = mc_host, mc_port
+        self.mc_channel_split = mc_channel_split
+        # one memcached client per loader thread: a client's socket and
+        # read buffer must not interleave two requests
+        self._mc_local = threading.local()
+        # the reference's blob sizes: GT (3, 256, 448), LQ = GT / scale
+        # (Vimeo7_dataset.py:171, 185)
+        self.gt_shape = tuple(gt_shape)
+        self.lq_shape = (gt_shape[0], gt_shape[1] // scale,
+                         gt_shape[2] // scale)
+        self._gt_env = self._lq_env = None
         self.n_frames = n_frames
         self.half = n_frames // 2
         self.gt_size, self.scale = gt_size, scale
@@ -82,24 +110,107 @@ class Vimeo7Dataset:
         self.phase = phase
         self.rng = random.Random(seed)
         if keys is None:
-            keys = []
-            for a in sorted(os.listdir(gt_root)):
-                pa = osp.join(gt_root, a)
-                if not osp.isdir(pa):
-                    continue
-                for b in sorted(os.listdir(pa)):
-                    if osp.isdir(osp.join(pa, b)):
-                        keys.append(f"{a}_{b}")
+            if data_type == "mc":
+                # memcached cannot list its keys; the reference loads a
+                # pickled key cache (Vimeo7_dataset.py:60-66)
+                raise ValueError("data_type='mc' requires explicit keys")
+            if data_type == "lmdb":
+                # the septuplet keys, recovered from the database's keys
+                keys = sorted({k.decode("ascii").rsplit("_", 1)[0]
+                               for k in self._env("gt").keys()})
+            else:
+                keys = []
+                for a in sorted(os.listdir(gt_root)):
+                    pa = osp.join(gt_root, a)
+                    if not osp.isdir(pa):
+                        continue
+                    for b in sorted(os.listdir(pa)):
+                        if osp.isdir(osp.join(pa, b)):
+                            keys.append(f"{a}_{b}")
         self.keys = keys
+
+    def _mc(self):
+        """This thread's memcached client, connected at first use (the
+        reference's ``_ensure_memcached``)."""
+        client = getattr(self._mc_local, "client", None)
+        if client is None:
+            from stif_tpu_torch.data.memcache import MemcachedClient
+
+            client = MemcachedClient(self.mc_host, self.mc_port)
+            self._mc_local.client = client
+        return client
+
+    def _read_img_mc(self, key: str) -> np.ndarray:
+        """PNG bytes by path key -> BGR HWC uint8 (``_read_img_mc``)."""
+        import cv2
+
+        buf = self._mc().get(key)
+        if buf is None:
+            raise KeyError(f"memcached key not found: {key}")
+        img = cv2.imdecode(np.frombuffer(buf, np.uint8),
+                           cv2.IMREAD_UNCHANGED)
+        if img is None:
+            raise ValueError(f"memcached value is not an image: {key}")
+        return img
+
+    def _read_img_mc_bgr(self, root: str, rel: str) -> np.ndarray:
+        """One frame merged from single-channel PNGs under ``<root>_B``,
+        ``_G`` and ``_R`` (the reference's ``_read_img_mc_BGR``, with its
+        argument-arity bug fixed)."""
+        import cv2
+
+        return cv2.merge([self._read_img_mc(osp.join(root + suffix, rel))
+                          for suffix in ("_B", "_G", "_R")])
+
+    def _env(self, which: str):
+        """The GT or LQ database, opened at first use (``_init_lmdb``)."""
+        from stif_tpu_torch.data.lmdb_io import LmdbReader
+
+        if which == "gt":
+            if self._gt_env is None:
+                self._gt_env = LmdbReader(self.gt_root)
+            return self._gt_env
+        if self._lq_env is None:
+            self._lq_env = LmdbReader(self.lq_root)
+        return self._lq_env
 
     def __len__(self):
         return len(self.keys)
+
+    def _frames(self, key: str, neighbors, lq_idx):
+        """GT frames ``neighbors`` and LQ frames ``lq_idx`` of septuplet
+        ``key``, float32 BGR in [0, 1]."""
+        name_a, name_b = key.split("_")
+        if self.data_type == "mc":
+            # GT through the channel split when it is on (the reference
+            # always splits GT, Vimeo7_dataset.py:168); LQ as whole PNGs
+            def read_gt(rel):
+                if self.mc_channel_split:
+                    return self._read_img_mc_bgr(self.gt_root, rel)
+                return self._read_img_mc(osp.join(self.gt_root, rel))
+
+            gt = [read_gt(osp.join(name_a, name_b, f"im{i}.png"))
+                  for i in neighbors]
+            lq = [self._read_img_mc(osp.join(self.lq_root, name_a, name_b,
+                                             f"im{i}.png")) for i in lq_idx]
+        elif self.data_type == "lmdb":
+            gt = [_read_img_lmdb(self._env("gt"), f"{key}_{i}",
+                                 self.gt_shape) for i in neighbors]
+            lq = [_read_img_lmdb(self._env("lq"), f"{key}_{i}",
+                                 self.lq_shape) for i in lq_idx]
+        else:
+            gt_dir = osp.join(self.gt_root, name_a, name_b)
+            lq_dir = osp.join(self.lq_root, name_a, name_b)
+            gt = [_read_img(osp.join(gt_dir, f"im{i}.png"))
+                  for i in neighbors]
+            lq = [_read_img(osp.join(lq_dir, f"im{i}.png")) for i in lq_idx]
+        return ([im.astype(np.float32) / 255.0 for im in gt],
+                [im.astype(np.float32) / 255.0 for im in lq])
 
     def __getitem__(self, index: int):
         from stif_tpu_torch.data.transforms import augment_stack
 
         key = self.keys[index]
-        name_a, name_b = key.split("_")
         interval = self.rng.choice(self.interval_list)
         center = self.rng.randint(2, 6)
         while (center + self.half * interval > 7) or (
@@ -111,17 +222,7 @@ class Vimeo7Dataset:
         if self.random_reverse and self.rng.random() < 0.5:
             neighbors.reverse()
         lq_idx = neighbors[::2]  # LQ frames = every 2nd GT frame (:52-54)
-
-        gt_dir = osp.join(self.gt_root, name_a, name_b)
-        lq_dir = osp.join(self.lq_root, name_a, name_b)
-        img_gt = [
-            _read_img(osp.join(gt_dir, f"im{i}.png")).astype(np.float32)
-            / 255.0 for i in neighbors
-        ]
-        img_lq = [
-            _read_img(osp.join(lq_dir, f"im{i}.png")).astype(np.float32)
-            / 255.0 for i in lq_idx
-        ]
+        img_gt, img_lq = self._frames(key, neighbors, lq_idx)
 
         if self.phase == "train":
             s = self.scale
@@ -302,8 +403,13 @@ def create_train_dataset(opt):
                 raw = pickle.load(f)
             keys = list(dict.fromkeys(
                 "_".join(str(k).split("_")[:2]) for k in raw))
-        if data_type != "img":
-            raise NotImplementedError(_NOT_PORTED.format(data_type))
+        extra = {}
+        if data_type == "mc":
+            extra = dict(mc_host=dopt.get("mc_host", "127.0.0.1"),
+                         mc_port=int(dopt.get("mc_port", 11211)),
+                         mc_channel_split=bool(dopt.get("mc_channel_split")))
+        if dopt.get("gt_shape"):
+            extra["gt_shape"] = tuple(dopt["gt_shape"])
         ds = create_dataset("Vimeo7", lq_root=dopt.get("dataroot_LQ"),
                             n_frames=int(dopt.get("N_frames", 7)),
                             gt_size=int(dopt.get("GT_size", 192)),
@@ -312,7 +418,8 @@ def create_train_dataset(opt):
                             interval_list=dopt.get("interval_list") or (1,),
                             use_flip=bool(dopt.get("use_flip", True)),
                             use_rot=bool(dopt.get("use_rot", True)),
-                            data_type=data_type, keys=keys, **common)
+                            data_type=data_type, keys=keys, **extra,
+                            **common)
         return ds, collate_fixed
     if mode == "Adobe":
         ds = create_dataset("Adobe", gt_size=int(dopt.get("GT_size", 192)),

@@ -37,10 +37,14 @@ class ShardedIterSampler:
         self.num_samples = int(math.ceil(n_items * ratio / world_size))
         self.total_size = self.num_samples * world_size
 
-    def epoch_indices(self, epoch: int) -> np.ndarray:
+    def global_indices(self, epoch: int) -> np.ndarray:
+        """Every rank's indices of ``epoch``, interleaved: rank r takes
+        entries r, r + world, ..."""
         g = np.random.default_rng(self.seed + epoch)
-        idx = g.permutation(self.total_size) % self.n_items
-        return idx[self.rank::self.world_size]
+        return g.permutation(self.total_size) % self.n_items
+
+    def epoch_indices(self, epoch: int) -> np.ndarray:
+        return self.global_indices(epoch)[self.rank::self.world_size]
 
 
 class DataLoader:
@@ -49,7 +53,12 @@ class DataLoader:
     A dataset with ``use_load_batch`` set is asked for whole batches
     (``dataset.load_batch(indices)``), so that it can make one decision per
     batch (one scale bucket for every sample); otherwise samples are loaded
-    one by one and collated."""
+    one by one and collated. With a sampler of ``world_size`` ranks and
+    ``batch_size`` = global batch / world, batch b of the ranks together
+    holds the indices of global batch b at world size 1; a rank's batch
+    then goes to ``dataset.load_batch(indices, group)``, with ``group`` the
+    global batch's indices, so that every rank makes the global batch's
+    decision."""
 
     def __init__(self, dataset, batch_size: int, collate: Callable,
                  sampler: Optional[ShardedIterSampler] = None,
@@ -65,18 +74,24 @@ class DataLoader:
         self.seed = seed
 
     def _index_batches(self, epoch: int):
+        """(indices, group) of each batch of ``epoch``."""
+        world = 1
         if self.sampler is not None:
-            idx = self.sampler.epoch_indices(epoch)
+            full = self.sampler.global_indices(epoch)
+            world = self.sampler.world_size
+            idx = full[self.sampler.rank::world]
         else:
-            idx = np.arange(len(self.dataset))
+            full = idx = np.arange(len(self.dataset))
             if self.shuffle:
                 np.random.default_rng(self.seed + epoch).shuffle(idx)
-        nb = len(idx) // self.batch_size
-        rem = len(idx) % self.batch_size
+        bs = self.batch_size
+        nb = len(idx) // bs
+        rem = len(idx) % bs
         for b in range(nb):
-            yield idx[b * self.batch_size:(b + 1) * self.batch_size]
+            yield (idx[b * bs:(b + 1) * bs],
+                   full[b * bs * world:(b + 1) * bs * world])
         if rem and not self.drop_last:
-            yield idx[nb * self.batch_size:]
+            yield idx[nb * bs:], full[nb * bs * world:]
 
     def epoch(self, epoch: int = 0) -> Iterator[dict]:
         """Yield collated batches, loaded by a thread ahead of the
@@ -102,12 +117,14 @@ class DataLoader:
 
         def worker():
             try:
-                for batch_idx in batches:
+                for batch_idx, group in batches:
                     if stop.is_set():
                         break
                     if batch_level:
-                        batch = self.dataset.load_batch(
-                            [int(i) for i in batch_idx])
+                        idx = [int(i) for i in batch_idx]
+                        group = [int(i) for i in group]
+                        batch = (self.dataset.load_batch(idx) if group == idx
+                                 else self.dataset.load_batch(idx, group))
                     else:
                         batch = self.collate(
                             [self.dataset[int(i)] for i in batch_idx])

@@ -319,15 +319,18 @@ class SyntheticVideoDataset:
     def __getitem__(self, index: int):
         return self._render_item(index, self.scale, self.gt_size)
 
-    def load_batch(self, indices):
+    def load_batch(self, indices, group=None):
         """Batch-level loading: draw ONE (scale, lq_size) bucket for the
-        whole batch (deterministic in (seed, indices)), render every sample
+        whole batch (deterministic in (seed, group)), render every sample
         at that shape, and stack: the reference's batch-level random-scale
         collate (``codes/data/__init__.py:63-121``) over a bucket plan:
-        per-batch scale, per-sample times."""
+        per-batch scale, per-sample times. ``group``: the indices of the
+        global batch that ``indices`` is a data-parallel rank's share of
+        (``indices`` by default)."""
         if self.scale_plan:
+            group = indices if group is None else group
             brng = np.random.default_rng(np.random.SeedSequence(
-                [self.seed, 1_000_003] + [int(i) for i in indices]))
+                [self.seed, 1_000_003] + [int(i) for i in group]))
             s, lq = self.scale_plan[int(brng.integers(len(self.scale_plan)))]
             g = s * lq
         else:

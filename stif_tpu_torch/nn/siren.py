@@ -18,6 +18,7 @@ import torch.nn as nn
 
 from stif_tpu_torch.ops.precision import round_to
 from stif_tpu_torch.ops.siren_fused import (
+    is_dtensor,
     siren_apply_fused,
     siren_apply_fused_plain,
 )
@@ -53,7 +54,12 @@ class Siren(nn.Module):
     - ``fused`` (the default) with ``split_first``: ``ValueError``. The
       kernel has no split-K form, and running it would record split-K as
       active on a path that never splits.
-    - ``fused``: ``siren_apply_fused`` (the kernel on CUDA tensors).
+    - ``fused``: ``siren_apply_fused`` (the kernel on CUDA tensors; it
+      raises on tensor-parallel weights).
+    - layers sharded by ``parallel.apply_tensor_parallel`` (DTensor
+      weights): each ``Linear`` module is called, so that its hooks gather
+      the sharded outputs whole before the sine; fp32 only, so
+      ``compute_dtype`` or ``split_first`` raises ``ValueError``.
     - ``split_first`` on a field list: the first layer is the sum of one
       partial product per field, ``sum_i x_i @ W[k_i] + b``; the same math
       up to the order of fp32 sums.
@@ -95,6 +101,19 @@ class Siren(nn.Module):
         linears = [m.linear for m in self.net[:-1]] + [self.net[-1]]
         dt = self.compute_dtype
         kernel = self._uses_kernel()
+        if not kernel and any(is_dtensor(lin.weight) for lin in linears):
+            if dt is not None or self.split_first:
+                raise ValueError(
+                    "Siren: tensor-parallel weights run the fp32 layers "
+                    "whole; compute_dtype and split_first are not supported "
+                    "there")
+            h = torch.cat(list(x) if isinstance(x, (list, tuple)) else [x],
+                          dim=-1)
+            for i, lin in enumerate(linears):
+                h = lin(h)
+                if i < len(linears) - 1:
+                    h = torch.sin(self.omega0 * h)
+            return h
         if kernel or (dt is None and not self.split_first):
             ws = [lin.weight.t().contiguous() for lin in linears]
             bs = [lin.bias for lin in linears]

@@ -10,9 +10,10 @@ from stif_tpu_torch.ops.siren_fused import (
     siren_apply_fused,
     siren_apply_fused_plain,
 )
-from stif_tpu_torch.ops.warp import warp_grid
+from stif_tpu_torch.ops.warp import backward_warp, warp_grid, warp_grid_coords
 
 __all__ = [
+    "backward_warp",
     "deform_conv2d",
     "fold3x3",
     "grid_sample",
@@ -26,4 +27,5 @@ __all__ = [
     "siren_apply_fused_plain",
     "split_offset_mask",
     "warp_grid",
+    "warp_grid_coords",
 ]

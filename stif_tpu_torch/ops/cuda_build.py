@@ -1,10 +1,12 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host library.
 
 Each ``csrc/<name>.cu`` has a plain C entry point. It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under ``stif_tpu_torch/_build``
 (listed in ``.gitignore``) at first use, named by a hash of its source so an
-edited kernel is rebuilt, and loaded with ``ctypes``. Nothing is built when
-a module is imported.
+edited kernel is rebuilt, and loaded with ``ctypes``. A ``csrc/<name>.cpp``
+(host code, a plain C ABI) is built the same way with ``g++``
+(``load_host``); its threads are ``std::thread``s, so it needs no OpenMP
+runtime. Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-pthread", "-std=c++17")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -75,3 +79,35 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+def host_library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cpp").read_bytes()
+    digest = hashlib.sha256(src + " ".join(HOST_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library ``csrc/<name>.cpp``, compiled with ``g++``
+    (``$CXX`` when set) at first use. Raises with the compiler's output if
+    the build fails."""
+    key = f"host:{name}"
+    if key not in _loaded:
+        out = host_library_path(name)
+        if not out.exists():
+            cxx = os.environ.get("CXX") or shutil.which("g++")
+            if not cxx:
+                raise RuntimeError("g++ not found: the host library "
+                                   f"{name} cannot be built")
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [cxx, *HOST_FLAGS, str(CSRC / f"{name}.cpp"), "-o",
+                   str(tmp)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"host library build failed: {name}: {' '.join(cmd)} "
+                    f"exited {proc.returncode}\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
+        _loaded[key] = ctypes.CDLL(str(out))
+    return _loaded[key]

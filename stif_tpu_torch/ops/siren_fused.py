@@ -8,7 +8,8 @@ tensor it launches the hand-written Hopper kernel ``csrc/siren_fused.cu``
 memory) or raises; on a CPU tensor it computes the plain version,
 ``siren_apply_fused_plain``. Nothing falls back from the kernel. The kernel
 has no backward: on a CUDA tensor it raises when grad mode is on and an
-operand requires grad.
+operand requires grad, and on any device it raises on a DTensor operand (a
+tensor-parallel weight, whose raw pointer holds one shard).
 
 The launch geometry is worked out here, by ``launch_plan``: rows per tile,
 how each layer's weights are cut into K-chunks for the kernel's
@@ -198,12 +199,29 @@ def blocks_per_sm(plan: LaunchPlan) -> int:
     return n
 
 
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a ``torch.distributed`` DTensor."""
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
 def siren_apply_fused(x, weights: Sequence[torch.Tensor],
                       biases: Sequence[torch.Tensor],
                       omega0: float = 30.0) -> torch.Tensor:
     """Fused SIREN forward. Same arguments and result as
     ``siren_apply_fused_plain``; on CUDA tensors it runs the kernel."""
     xs = _as_fields(x)
+    if any(is_dtensor(t) for t in xs + list(weights) + list(biases)):
+        # a sharded weight's pointer holds one shard of its columns: the
+        # kernel would read past it or compute a slice as if it were whole
+        raise RuntimeError(
+            "siren_apply_fused: an operand is a DTensor (tensor-parallel "
+            "layer); the fused kernel reads whole tensors through raw "
+            "pointers. apply_tensor_parallel turns the kernel off in the "
+            "nets it shards.")
     dev = xs[0].device
     if dev.type == "cpu":
         return siren_apply_fused_plain(xs, weights, biases, omega0)

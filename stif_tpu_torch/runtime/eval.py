@@ -17,8 +17,8 @@ need only ``pipeline.render_window``, the TMNet ones
 
 Each protocol scores one clip in a private helper that takes the frames as an
 array (T, H, W, 3), so in-memory clips can be scored without reading files.
-The LR frames are made on the host with this package's MATLAB-bicubic
-``imresize`` on CPU tensors.
+The LR frames are made on the host by the native MATLAB-bicubic resize
+(``data.native.host_imresize``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from stif_tpu_torch.data.datasets import host_imresize
+from stif_tpu_torch.data.native import host_imresize
 from stif_tpu_torch.utils.metrics import (
     bgr2ycbcr,
     calculate_psnr,

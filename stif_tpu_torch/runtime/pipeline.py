@@ -8,6 +8,7 @@ the output identical to the JAX pipeline's.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Sequence, Tuple
 
@@ -104,19 +105,68 @@ class InferencePipeline:
 
     def _render_window_raw(self, frames: np.ndarray,
                            times: Sequence[float]) -> np.ndarray:
+        return self._fetch(self._launch(frames, times))
+
+    def _launch(self, frames: np.ndarray, times: Sequence[float]):
+        """Queue one window's compute and the start of its copy to the
+        host; ``_fetch`` waits for it. On a CUDA device the copy runs on a
+        side stream that waits for an event recorded when the compute ends,
+        into pinned host memory, so that the next window's compute (queued
+        on the compute stream meanwhile) overlaps it. The inputs go up from
+        pinned memory without a wait, so that queueing this window does not
+        first wait for the previous one's compute to end. The events and
+        streams are those of ``self.device``, whichever card is current."""
         x, (h, w) = pad_to_multiple(np.asarray(frames, np.float32), 4,
                                     self.bucket)
         hp, wp = x.shape[1], x.shape[2]
-        with torch.inference_mode():
-            xt = torch.from_numpy(x[None]).to(self.device)
-            t = torch.as_tensor(np.asarray(times, np.float32),
-                                device=self.device)
+        cuda = self.device.type == "cuda"
+        with torch.inference_mode(), (torch.cuda.device(self.device) if cuda
+                                      else contextlib.nullcontext()):
+            xt, t = (torch.from_numpy(x[None]),
+                     torch.from_numpy(np.asarray(times, np.float32)))
+            if cuda:
+                xt, t = (v.pin_memory().to(self.device, non_blocking=True)
+                         for v in (xt, t))
+            else:
+                xt, t = xt.to(self.device), t.to(self.device)
             out = self.model(xt, t, out_size=(hp * self.scale,
                                               wp * self.scale),
                              test=self.test_mode,
                              local_ensemble=self.local_ensemble)
-            out = out[:, 0, :h * self.scale, :w * self.scale].cpu().numpy()
-        return out
+            out = out[:, 0].contiguous()
+            if not cuda:
+                return out, None, (h, w)
+            computed = torch.cuda.Event()
+            computed.record()
+            side = self._copy_stream()
+            side.wait_event(computed)
+            with torch.cuda.stream(side):
+                host = torch.empty(out.shape, dtype=out.dtype,
+                                   pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record()
+            # the caching allocator must not hand ``out``'s memory to the
+            # next window while the side stream still reads it
+            out.record_stream(side)
+        return host, copied, (h, w)
+
+    def _fetch(self, pending) -> np.ndarray:
+        """Wait for a launched window's copy; (nt, H*scale, W*scale, 3)
+        numpy in memory of its own. A copy off the pinned buffer: page-locked
+        memory is scarce, and the allocator reuses the buffer for a later
+        window once this one is dropped."""
+        out, copied, (h, w) = pending
+        frames = out.numpy()[:, :h * self.scale, :w * self.scale]
+        if copied is None:
+            return frames
+        copied.synchronize()
+        return frames.copy()
+
+    def _copy_stream(self):
+        if getattr(self, "_side", None) is None:
+            self._side = torch.cuda.Stream(self.device)
+        return self._side
 
     def _render_window_ensemble(self, frames: np.ndarray,
                                 times: Sequence[float]) -> np.ndarray:
@@ -182,7 +232,16 @@ class InferencePipeline:
                         n_times: int = 8) -> List[np.ndarray]:
         """Stream a sequence (T, H, W, 3) through overlapping frame pairs,
         ``n_times`` frames per pair at times i / n_times. Returns a list of
-        (n_times, H*scale, W*scale, 3)."""
+        (n_times, H*scale, W*scale, 3). Double-buffered: pair i + 1 is
+        launched before pair i is fetched, so that pair i's copy to the
+        host overlaps pair i + 1's compute; the frames equal those of
+        ``render_window`` pair by pair, bitwise."""
         times = [i / n_times for i in range(n_times)]
-        return [self._render_window_raw(frames[i:i + 2], times)
-                for i in range(frames.shape[0] - 1)]
+        outs = []
+        pending = self._launch(frames[0:2], times)
+        for i in range(1, frames.shape[0] - 1):
+            nxt = self._launch(frames[i:i + 2], times)
+            outs.append(self._fetch(pending))
+            pending = nxt
+        outs.append(self._fetch(pending))
+        return outs

@@ -65,15 +65,26 @@ def lap_loss(x: torch.Tensor, y: torch.Tensor, max_levels: int = 5,
                for a, b in zip(pyramid(x), pyramid(y)))
 
 
+def _reduced(fn, reduction: str):
+    """``fn`` with its reduction over the batch named: 'sum' or 'mean'.
+    Data-parallel training reads it to rebuild the global gradient from
+    DDP's average over ranks."""
+    def criterion(x, y):
+        return fn(x, y)
+
+    criterion.reduction = reduction
+    return criterion
+
+
 def make_pixel_criterion(name: str):
     """'l1' | 'l2' | 'cb' | 'lp' -> loss fn (sum / mean as the reference's
-    torch losses reduce)."""
+    torch losses reduce; the fn's ``reduction`` attribute says which)."""
     if name == "l1":
-        return lambda x, y: torch.mean(torch.abs(x - y))
+        return _reduced(lambda x, y: torch.mean(torch.abs(x - y)), "mean")
     if name == "l2":
-        return lambda x, y: torch.mean((x - y) ** 2)
+        return _reduced(lambda x, y: torch.mean((x - y) ** 2), "mean")
     if name == "cb":
-        return charbonnier_loss
+        return _reduced(charbonnier_loss, "sum")
     if name == "lp":
-        return lap_loss
+        return _reduced(lap_loss, "mean")
     raise ValueError(f"unknown pixel criterion '{name}'")

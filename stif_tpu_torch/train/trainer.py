@@ -15,8 +15,12 @@ restart schedule. The JAX package writes the optimizer as an optax chain;
 - ``optax.scale_by_schedule``: the lr is the schedule at the update count
   *before* the step, so under warmup the first update has lr 0.
 
-The logged ``grad_norm`` is the global norm before clipping. Data-parallel
-training (the JAX package's mesh-sharded step) is not ported.
+The logged ``grad_norm`` is the global norm before clipping.
+
+``make_parallel_train_step`` is the data-parallel step (the JAX package's
+mesh-sharded one): DDP over one process per device, each rank on its rows
+of the global batch, with the loss scaled so that the gradient is the
+global batch's, as the JAX step's is.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import dataclasses
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from stif_tpu_torch.train.losses import make_pixel_criterion
 from stif_tpu_torch.train.schedules import (cosine_annealing_restart,
@@ -147,4 +152,64 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
         mark("update")
         return {"loss": loss.detach(), "grad_norm": gnorm.detach()}
 
+    return train_step
+
+
+def make_parallel_train_step(model: torch.nn.Module, optimizer: Optimizer,
+                             cfg: TrainConfig, mesh,
+                             per_sample_times: bool = False) -> Callable:
+    """Data-parallel ``train_step(batch, count, mark=None)``: ``model``
+    wrapped in ``DistributedDataParallel``, one process per device of the
+    mesh's ``data`` axis (NCCL on the card, gloo on the CPU; the process
+    group must exist). Each rank is handed its own ``B / world`` rows of
+    the global batch (a per-rank loader; ``B % world == 0``, as the JAX
+    sharding requires). Per-sample times (B, nt) come with those rows;
+    shared times (nt,) are the same on every rank.
+
+    JAX shards one global step: its gradient is that of the loss over the
+    whole batch, and DDP averages over ranks. A sum-reduced criterion
+    ('cb') is therefore scaled by the world size before ``backward``; a
+    mean-reduced one ('l1', 'l2', 'lp', equal rows per rank) is not. The
+    logged ``loss`` is the global one (the ranks' sum, or their mean);
+    ``grad_norm`` and the clip follow DDP's all-reduce, so they are global
+    already."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_parallel_train_step needs a process group")
+    world = dist.get_world_size()
+    if mesh.shape.get("data", 1) != world or mesh.size != world:
+        raise ValueError(f"mesh {mesh.shape} over a process group of {world}")
+    dev = next(model.parameters()).device
+    ddp = DistributedDataParallel(
+        model, device_ids=[dev] if dev.type == "cuda" else None,
+        static_graph=True)
+    reduction = make_pixel_criterion(cfg.pixel_criterion).reduction
+    loss_fn = make_loss_fn(ddp, cfg)
+
+    def check(batch):
+        times = batch["times"]
+        if times.dim() != (2 if per_sample_times else 1):
+            raise ValueError(f"times of shape {tuple(times.shape)} with "
+                             f"per_sample_times={per_sample_times}")
+        return batch
+
+    def train_step(batch, count: int,
+                   mark: Optional[Callable[[str], None]] = None
+                   ) -> Dict[str, torch.Tensor]:
+        mark = mark or (lambda _: None)
+        optimizer.zero_grad()
+        loss = loss_fn(check(batch))
+        mark("forward")
+        (loss * world if reduction == "sum" else loss).backward()
+        mark("backward")
+        gnorm = optimizer.step(count)
+        mark("update")
+        total = loss.detach().clone()
+        dist.all_reduce(total)
+        if reduction == "mean":
+            total /= world
+        return {"loss": total, "grad_norm": gnorm.detach()}
+
+    train_step.ddp = ddp
     return train_step

@@ -82,7 +82,7 @@ class Validator:
     def _scale_probe(self, s: int) -> dict:
         """t=0 Y-PSNR at spatial scale ``s`` on the first dev scene (and its
         bicubic bar, computed once), with the params ``validate`` loaded."""
-        from stif_tpu_torch.data.datasets import host_imresize
+        from stif_tpu_torch.data.native import host_imresize
         from stif_tpu_torch.runtime import InferencePipeline
         from stif_tpu_torch.runtime.eval import _load_frames
         from stif_tpu_torch.utils.metrics import bgr2ycbcr, calculate_psnr

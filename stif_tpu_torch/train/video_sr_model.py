@@ -12,8 +12,14 @@ The net comes from ``define_g`` with every SIREN on its plain PyTorch form
 kernel, under ``inference_mode``. An exponential moving average of the
 parameters (``train.ema_decay``, 0 = off), ``d * e + (1 - d) * p`` after
 every step, is kept outside the optimizer checkpoint and saved beside it as
-``ema_params_<step>.pth``, two deep. Data-parallel training waits for the
-port of ``stif_tpu.parallel``: there is no ``parallel`` argument.
+``ema_params_<step>.pth``, two deep.
+
+With ``parallel`` the model trains data-parallel (DDP, one process per
+device; see ``trainer.make_parallel_train_step``): each rank is fed its own
+rows of the global batch (``feed_data``), the EMA updates on every rank
+from the same parameters, and checkpoints and the EMA snapshots are written
+by rank 0 behind a barrier. State-dict keys carry no ``module.`` prefix, so
+a checkpoint loads into a model of either kind.
 """
 
 from __future__ import annotations
@@ -27,9 +33,12 @@ import torch
 from stif_tpu_torch.models.factory import define_g
 from stif_tpu_torch.nn.init import init_model_
 from stif_tpu_torch.nn.siren import set_fused
+from stif_tpu_torch.parallel.distributed import (barrier, join_process_group,
+                                                 rank_and_world)
 from stif_tpu_torch.runtime.pipeline import resolve_device
 from stif_tpu_torch.train.checkpoints import CheckpointManager, load_params
 from stif_tpu_torch.train.trainer import (TrainConfig, make_optimizer,
+                                          make_parallel_train_step,
                                           make_train_step)
 
 
@@ -63,11 +72,18 @@ def train_config(opt: dict) -> TrainConfig:
 
 class VideoSRModel:
     """Runs on CUDA unless ``device`` says otherwise; raises without a GPU
-    when CUDA is asked for or defaulted to."""
+    when CUDA is asked for or defaulted to. ``parallel``: data-parallel
+    over the process group, joined from ``torch.distributed.run``'s
+    environment when the process is in none (CUDA: this rank's
+    ``cuda:LOCAL_RANK``)."""
 
-    def __init__(self, opt: dict, device=None):
+    def __init__(self, opt: dict, device=None, parallel: bool = False):
         self.opt = opt
         self.device = resolve_device(device)
+        self.parallel = parallel
+        if parallel:
+            self.device = join_process_group(self.device)
+        self.rank, self.world = rank_and_world() if parallel else (0, 1)
         self.net = define_g(opt)
         set_fused(self.net, False)
         self.net.to(self.device).train()
@@ -92,7 +108,16 @@ class VideoSRModel:
         fixed at construction (the JAX package inits from its shapes)."""
         init_model_(self.net, torch.Generator().manual_seed(int(seed)))
         self.optimizer, _ = make_optimizer(self.net.parameters(), self.cfg)
-        self._step_fn = make_train_step(self.net, self.optimizer, self.cfg)
+        if self.parallel:
+            from stif_tpu_torch.parallel import default_mesh
+
+            mesh = default_mesh(self.world, device_type=self.device.type)
+            self._step_fn = make_parallel_train_step(
+                self.net, self.optimizer, self.cfg, mesh,
+                per_sample_times=np.ndim(example_times) == 2)
+        else:
+            self._step_fn = make_train_step(self.net, self.optimizer,
+                                            self.cfg)
         self.step = 0
         if self.ema_decay > 0:
             self.ema_params = self._params_copy()
@@ -107,7 +132,8 @@ class VideoSRModel:
     def feed_data(self, data: dict) -> None:
         """data: {'LQs': (B,N,h,w,3), 'GT': (B,nt,H,W,3), 'times': (nt,)
         shared or (B,nt) per sample}, NHWC (the reference's NCHW batches
-        convert with ``from_torch_batch``)."""
+        convert with ``from_torch_batch``); data-parallel, this rank's
+        rows."""
         def dev(a):
             return torch.as_tensor(np.asarray(a, np.float32),
                                    device=self.device)
@@ -158,20 +184,30 @@ class VideoSRModel:
 
     def save(self) -> int:
         """Checkpoint (params, optimizer state, step) plus the EMA
-        snapshot of this step."""
+        snapshot of this step; rank 0 writes, every rank waits for it."""
         if self.ckpt is None:
             raise RuntimeError("no path.models in the options")
-        ret = self.ckpt.save(self.step, self.net.state_dict(),
-                             self.optimizer.state_dict())
-        if self.ema_params is not None:
-            self.ckpt.save_params_only(self.ema_params, self.step,
-                                       prefix="ema_params", keep=2)
-        return ret
+        if self.rank == 0:
+            self.ckpt.save(self.step, self.net.state_dict(),
+                           self.optimizer.state_dict())
+            if self.ema_params is not None:
+                self.ckpt.save_params_only(self.ema_params, self.step,
+                                           prefix="ema_params", keep=2)
+        if self.parallel:
+            barrier()
+        return self.step
 
-    def save_network(self, step: int) -> str:
+    def save_network(self, step: int) -> Optional[str]:
+        """Weights only, ``params_<step>.pth``; its path (None on ranks
+        other than 0, which wait for rank 0 to write it)."""
         if self.ckpt is None:
             raise RuntimeError("no path.models in the options")
-        return self.ckpt.save_params_only(self.net.state_dict(), step)
+        path = None
+        if self.rank == 0:
+            path = self.ckpt.save_params_only(self.net.state_dict(), step)
+        if self.parallel:
+            barrier()
+        return path
 
     def resume_training(self, step: Optional[int] = None) -> int:
         """Restore params, optimizer state and step from checkpoint ``step``

@@ -2,7 +2,8 @@
 parse, recursive ``NoneDict`` (missing keys read as ``None``), experiment
 and results path derivation, per-dataset scale propagation, and the
 ``check_resume`` rewiring. ``yaml`` is imported when a file is parsed, so
-the package imports without it."""
+the package imports without it; a ``.json`` options file (the same schema)
+is read without ``yaml``."""
 
 from __future__ import annotations
 
@@ -25,10 +26,15 @@ def dict_to_nonedict(opt):
 
 
 def parse_options(path: str, is_train: bool = True) -> NoneDict:
-    import yaml
-
     with open(path) as f:
-        opt = yaml.safe_load(f)
+        if path.endswith(".json"):
+            import json
+
+            opt = json.load(f)
+        else:
+            import yaml
+
+            opt = yaml.safe_load(f)
 
     opt["is_train"] = is_train
     scale = opt.get("scale")

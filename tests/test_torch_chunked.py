@@ -114,10 +114,17 @@ def test_chunked_per_sample_times(setup):
 
 
 def test_chunked_takes_no_mesh():
-    """The mesh is not ported: there is no argument that would be accepted
-    and ignored; without a GPU the default device raises."""
+    """A mesh whose ``model`` axis has size 1 is the same as no mesh (one
+    device, ``n_par`` 1), as in the JAX package; without a GPU the default
+    device raises."""
+    from stif_tpu_torch.parallel import default_mesh
+
     assert list(inspect.signature(ChunkedDecoder.__init__).parameters) == [
-        "self", "model", "chunk_size", "device"]
+        "self", "model", "chunk_size", "device", "mesh", "mesh_axis"]
+    dec = ChunkedDecoder(torch.nn.Identity(), device="cpu",
+                         mesh=default_mesh(2, device_type="cpu"))
+    assert dec.mesh is None and dec.n_par == 1
+    assert dec.devices == [torch.device("cpu")]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             ChunkedDecoder(torch.nn.Identity())

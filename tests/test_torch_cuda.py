@@ -413,3 +413,134 @@ def test_train_step_on_the_card_matches_cpu(cuda, tmp_path):
     gpu, cpu = logs
     np.testing.assert_allclose(gpu["loss"], cpu["loss"], rtol=1e-4)
     np.testing.assert_allclose(gpu["grad_norm"], cpu["grad_norm"], rtol=1e-3)
+
+
+# --------------------------------------------------- parallel and streaming
+
+def test_data_parallel_step_at_world_size_one(cuda):
+    """Three DDP steps over NCCL at world size 1 (B 2, nf 8) against three
+    single-process steps from the same init: loss rtol 1e-5, grad norm rtol
+    1e-4."""
+    import torch.distributed as dist
+
+    from stif_tpu_torch.parallel.distributed import free_port
+    from stif_tpu_torch.train.video_sr_model import VideoSRModel
+
+    torch.backends.cudnn.allow_tf32 = False
+    opt = {"network_G": dict(which_model_G="LIIF", nf=8, nframes=6,
+                             groups=2, front_RBs=1, back_RBs=1,
+                             rgb_skip="bicubic"),
+           "train": dict(lr_G=1e-4, warmup_iter=-1, T_period=[100],
+                         restarts=[], restart_weights=[], grad_clip=1e6)}
+    rng = np.random.default_rng(0)
+    batch = {"LQs": rng.random((2, 2, 8, 8, 3)).astype(np.float32),
+             "GT": rng.random((2, 2, 32, 32, 3)).astype(np.float32),
+             "times": np.asarray([[0.0, 0.5], [1.0, 0.25]], np.float32)}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        logs = []
+        for parallel in (True, False):
+            m = VideoSRModel(opt, device=cuda, parallel=parallel)
+            m.init_params(batch["LQs"], batch["times"], seed=3)
+            m.feed_data(batch)
+            logs.append([m.optimize_parameters() for _ in range(3)])
+    finally:
+        dist.destroy_process_group()
+    for got, want in zip(*logs):
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+        np.testing.assert_allclose(got["grad_norm"], want["grad_norm"],
+                                   rtol=1e-4)
+
+
+def test_mesh_chunked_decoder_on_the_card(small_model):
+    """Two handles of one card drive the n_par 2 dispatch: within 1e-5 of
+    the single-device chunked decode, 3 launches per chunk; a mesh of size
+    1 gives the single-device output bitwise."""
+    from stif_tpu_torch.parallel import default_mesh, make_mesh
+    from stif_tpu_torch.runtime import ChunkedDecoder
+
+    build, x, times = small_model
+    model = build()
+    with torch.inference_mode():
+        feat = model.gen_feat(x)
+    one = ChunkedDecoder(model, 500).decode(feat, x, times, (32, 48))
+    before = siren_apply_fused.launches
+    mesh = make_mesh({"model": 2}, [torch.device("cuda", 0)] * 2)
+    got = ChunkedDecoder(model, 500, mesh=mesh).decode(feat, x, times,
+                                                       (32, 48))
+    assert siren_apply_fused.launches == before + 3 * 4  # 2 steps x 2
+    assert np.abs(got - one).max() <= 1e-5
+    same = ChunkedDecoder(model, 500, mesh=default_mesh(1)).decode(
+        feat, x, times, (32, 48))
+    np.testing.assert_array_equal(same, one)
+
+
+def test_render_sequence_on_the_card(small_model):
+    """The double-buffered sequence (copies on a side stream into pinned
+    memory) equals the back-to-back windows bitwise, 3 launches per pair."""
+    from stif_tpu_torch.runtime import InferencePipeline
+
+    build, _, _ = small_model
+    pipe = InferencePipeline(build(), bucket=4)
+    frames = np.random.default_rng(1).random((5, 8, 12, 3)).astype(
+        np.float32)
+    before = siren_apply_fused.launches
+    got = pipe.render_sequence(frames, n_times=3)
+    assert siren_apply_fused.launches == before + 12
+    for i, out in enumerate(got):
+        want = pipe.render_window(frames[i:i + 2], [0.0, 1 / 3, 2 / 3])
+        np.testing.assert_array_equal(out, want)
+
+
+def _cards(n):
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA GPUs")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def test_pipeline_on_a_card_that_is_not_current(small_model):
+    """A pipeline on ``cuda:1`` while ``cuda:0`` is current: its events and
+    copy stream follow its own card, so the double-buffered frames equal
+    the back-to-back ones bitwise and those of a pipeline on ``cuda:0``."""
+    from stif_tpu_torch.runtime import InferencePipeline
+
+    cards = _cards(2)
+    build, _, _ = small_model
+    torch.cuda.set_device(0)
+    frames = np.random.default_rng(2).random((5, 48, 64, 3)).astype(
+        np.float32)
+    times = [0.0, 1 / 3, 2 / 3]
+    ref = InferencePipeline(build(), bucket=4, device=cards[0])
+    pipe = InferencePipeline(build(), bucket=4, device=cards[1])
+    got = pipe.render_sequence(frames, n_times=3)
+    assert torch.cuda.current_device() == 0
+    for i, out in enumerate(got):
+        np.testing.assert_array_equal(
+            out, pipe.render_window(frames[i:i + 2], times))
+        want = ref.render_window(frames[i:i + 2], times)
+        assert np.abs(out - want).max() <= 1e-5
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_mesh_chunked_decoder_over_cards(small_model, n):
+    """The mesh ``ChunkedDecoder`` over ``n`` distinct cards (a replica of
+    the model on each, the HR field gathered to the first card and
+    replicated back) against the single-card decode: within 1e-5, 3
+    launches per chunk."""
+    from stif_tpu_torch.parallel import make_mesh
+    from stif_tpu_torch.runtime import ChunkedDecoder
+
+    cards = _cards(n)
+    build, x, times = small_model
+    model = build()
+    with torch.inference_mode():
+        feat = model.gen_feat(x)
+    one = ChunkedDecoder(model, 300).decode(feat, x, times, (32, 48))
+    dec = ChunkedDecoder(build(), 300, mesh=make_mesh({"model": n}, cards))
+    assert len(dec._replicas) == n
+    before = siren_apply_fused.launches
+    got = dec.decode(feat, x, times, (32, 48))
+    steps = -(-32 * 48 // (300 * n))
+    assert siren_apply_fused.launches == before + 3 * n * steps
+    assert np.abs(got - one).max() <= 1e-5

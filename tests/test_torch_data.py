@@ -198,9 +198,11 @@ def test_vimeo7(vimeo_root):
         assert got.keys == want.keys and len(got) == 3
         for i in (0, 2, 1, 0):
             _same(got[i], want[i], resized=())
-    for backend in ("lmdb", "mc"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            datasets.Vimeo7Dataset(gt_root, data_type=backend)
+    # memcached cannot list keys; an unknown backend is refused
+    with pytest.raises(ValueError, match="explicit keys"):
+        datasets.Vimeo7Dataset(gt_root, data_type="mc")
+    with pytest.raises(ValueError, match="Wrong data type"):
+        datasets.Vimeo7Dataset(gt_root, data_type="hdf5")
 
 
 def test_adobe(adobe_root):
@@ -245,8 +247,8 @@ def test_augment_stack():
 
 def test_create_train_dataset(vimeo_root):
     """The factory from an options dict: Synthetic with a bucket plan (the
-    loader's batch-level path) and Vimeo7 folders; the lmdb backend,
-    inferred from the root's suffix, is not ported."""
+    loader's batch-level path) and Vimeo7 folders; the lmdb backend is
+    inferred from the root's suffix (here a database that is not there)."""
     opt = {"scale": 4, "datasets": {"train": {
         "mode": "Synthetic", "n_items": 30, "GT_size": 32, "nt": 2,
         "seed": 9, "scale_plan": [[4, 8], [2, 8]]}}}
@@ -263,7 +265,7 @@ def test_create_train_dataset(vimeo_root):
     ds, _ = datasets.create_train_dataset(vopt)
     assert isinstance(ds, datasets.Vimeo7Dataset) and len(ds) == 3
     vopt["datasets"]["train"]["dataroot_GT"] = gt_root + ".lmdb"
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError, match="lmdb"):
         datasets.create_train_dataset(vopt)
     with pytest.raises(NotImplementedError):
         datasets.create_dataset("REDS")

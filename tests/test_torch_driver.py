@@ -72,12 +72,14 @@ def test_script_no_degrade_and_folders(tmp_path):
 
 
 def test_script_rejects_params_and_needs_a_gpu(tmp_path):
-    """``--params`` is not ported: it is refused, not accepted and ignored.
-    Without ``--device cpu`` the script raises where there is no GPU."""
+    """``--params`` and ``--checkpoint`` are two sources of the weights:
+    given both, the script refuses. Without ``--device cpu`` the script
+    raises where there is no GPU."""
     _write_frames(tmp_path / "in" / "a", 2, (8, 8))
     main = _main()
     with pytest.raises(SystemExit):
-        main(["--input", str(tmp_path / "in"), "--params", "x"])
+        main(["--input", str(tmp_path / "in"), "--params", "x",
+              "--checkpoint", "y"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             main(["--input", str(tmp_path / "in"), "--output",
@@ -294,12 +296,13 @@ def test_train_script_runs_and_resumes(trained_run):
 
 
 def test_train_script_flags(trained_run, tmp_path):
-    """``--parallel`` is not ported: refused, not accepted and ignored.
-    Without ``--device cpu`` the script raises where there is no GPU."""
+    """``--parallel`` outside ``torch.distributed.run`` (no process group
+    in the environment) raises rather than training alone. Without
+    ``--device cpu`` the script raises where there is no GPU."""
     _, cfg, _, _ = trained_run
     main = _main(TRAIN_SCRIPT)
-    with pytest.raises(SystemExit):
-        main(["-opt", str(cfg), "--parallel"])
+    with pytest.raises(RuntimeError, match="process group"):
+        main(["-opt", str(cfg), "--parallel", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             main(["-opt", str(cfg), "--steps", "1"])

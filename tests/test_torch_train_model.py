@@ -180,7 +180,9 @@ def test_no_siren_runs_the_kernel(tmp_path):
     assert not any(s.fused for s in m.net.modules() if isinstance(s, Siren))
     with pytest.raises(NotImplementedError):
         create_model({"model": "SRGAN", "network_G": dict(NET)})
-    with pytest.raises(TypeError):  # data parallel is not ported
+    # data parallel needs a process group (torch.distributed.run's
+    # environment, or one made by the caller)
+    with pytest.raises(RuntimeError, match="process group"):
         VideoSRModel(_opt(tmp_path), device="cpu", parallel=True)
 
 
