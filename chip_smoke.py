@@ -7,19 +7,32 @@ Run from the root of a checkout. In order:
 
 1. device: the card's name and power limit; TF32 off for cuDNN convs and
    matmuls (fp32 parity with the JAX reference);
-2. build: every CUDA kernel of the serving path, from ``stif_tpu_torch/csrc``,
-   one ``nvcc`` per source, all started together;
+2. build: every CUDA kernel of the port, from ``stif_tpu_torch/csrc``
+   (``siren_fused.cu``, ``deform_conv.cu``), one ``nvcc`` per source, all
+   started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the decoder's three nets with their real field splits (max|d| <= 1e-4):
    contiguous fields, then the decoder's real layouts (column slices of a
    198-wide tensor, fields broadcast over the time axis, ragged row
    counts), and the kernel's sine against a float64 sine; then timed at the main path's shapes (LR 96x160, 8 times, x4);
+3b. the DCN kernels (``dcn_im2col``, ``dcn_col2im``) against their plain
+   versions at the encoder's levels L1 96x160, L2 48x80, L3 24x40 (B 1)
+   with the trained offsets of the main path's first alignment and with
+   offsets of +-6 px, zero offsets at L1, a training batch's levels (B 4,
+   48, 24, 12), stride 2, dilation 2 and ``shift_bound`` 2: the columns
+   within 1e-4, the backward kernel within 1e-4 x max|g|, and the op's
+   forward (1e-4) and its gradients of x, offset, mask, weight and bias
+   (1e-4 x max|g|) against autograd through the plain forward; then timed
+   at L1 (each kernel, the op's forward and backward, their plain versions
+   and bounds);
 4. main path: the deployed full-width model (``rgb_skip`` bicubic) with the
    trained weights ``weights/trained_best_G.pth`` through
    ``InferencePipeline.render_window`` on a seeded 96x160 LR pair at 8 times:
    shape and finiteness, kernel launches per window, the same window with
    the plain SIREN (max|d| <= 1e-3), a small window against the port on the
    CPU (max|d| <= 1e-3), timings, and one window's device time by kernel;
+   42 DCN forward launches per window, the window with the plain DCN (max|d|
+   <= 1e-3), both timed in 5 alternating runs and profiled;
 5. the rest of the serving surface, same model, weights and pair:
    a. the kernel against plain at the chunked stages' shapes (8 x 65,536
       rows, separate contiguous fields), at a batch of two (fields broadcast
@@ -36,9 +49,11 @@ Run from the root of a checkout. In order:
    f. one production-size window through the chunked path, LR 270x480 ->
       8 x 1080x1920: finite, ms and peak memory;
    g. the quality line: PSNR at t = 0 and t = 0.5 on two seeded synthetic
-      scenes for the kernel, the plain SIREN (within 0.01 dB) and each knob;
+      scenes for the kernel, the plain SIREN and the plain DCN (each within
+      0.01 dB) and each knob;
 7. the model zoo, on weights drawn from a seeded ``torch.Generator`` with
-   every DCN offset conv perturbed:
+   every DCN offset conv perturbed (every model runs the DCN kernels on the
+   card and is held against the CPU's plain versions):
    a. the kernel against plain at the six nets of ``LunaTokisTrain``,
       ``LunaTokisS`` and ``LunaTokisNoFlow`` with their real field layouts
       (max|d| <= 1e-4), then timed at 1,966,080 rows beside each net's bound;
@@ -60,11 +75,13 @@ Run from the root of a checkout. In order:
       step the bucket, loss and grad norm; then ms per step by CUDA events
       (median, min, max), the forward / backward / optimizer split,
       samples/s, peak memory, and at x4 one profiled step's top kernels and
-      the device's idle share; no kernel launch;
+      the device's idle share; no SIREN launch, 42 DCN backward launches a
+      step;
    b. ten steps on one fixed x4 batch with warmup off: the loss falls;
    c. one step from the same init on the card and on the CPU (B 1, LR
       16x16, nt 2): loss within rtol 1e-4, grad norm within rtol 1e-3, and
-      the largest per-parameter gradient difference;
+      the largest per-parameter gradient difference; the card's step runs
+      the DCN kernels (42 backward launches);
    d. save after [8b]'s steps, resume into a fresh model: params, Adam
       moments, step and EMA bitwise equal, the next loss within rtol 1e-5;
    e. a ``Validator`` probe (1 dev scene, 144x192) through the kernel and
@@ -91,13 +108,15 @@ Run from the root of a checkout. In order:
       the card against the CPU (<= 1e-5); the native host resize, built
       here with ``g++``, against its plain version (<= 1e-5) and ms per
       1080p frame both ways;
-6. the ``kernels`` JSON line (launches summed over every path driven), then
-   the result line.
+6. the ``kernels`` JSON line (launches summed over every path driven; the
+   DCN kernels' times are of one L1 call), then the result line.
 
 Any failed check raises and the script exits non-zero; without a CUDA
 device it exits 2 and prints no result. ``python3 chip_smoke.py --kernels``
-stops after phases 3, 5a and 7a and prints no result line (for work on a
-kernel).
+stops after phases 3, 3b, 5a and 7a and prints no result line (for work on
+a kernel). Every path counts the launches of each kernel: a path through an
+encoder must launch the DCN forward kernel, a decode of given features must
+not.
 """
 
 from __future__ import annotations
@@ -142,6 +161,13 @@ ZOO_NETS = {
 # published dense peaks without sparsity (NVIDIA data sheets): fp32 on the
 # CUDA cores, and device-memory bandwidth
 PEAKS = {"SXM": (67e12, 3.35e12), "PCIe": (51e12, 2.0e12)}
+# DCN calls per LR pair: 13 alignments of 6 DCNs (one in gen_feat, two per
+# ConvLSTM step over 3 steps in each direction); the port runs the two
+# directions as one batch, so 7 pyramids of 6 calls
+DCN_PER_PAIR = 42
+DCN_BAR = 1e-4      # DCN kernels vs plain: forward max|d|, gradients / max|g|
+DCN_LEVELS = {"L1": (96, 160), "L2": (48, 80), "L3": (24, 40)}
+DCN_ALTERNATIONS = 5  # [4]: windows timed with the DCN kernels and plain
 
 
 def log(msg: str) -> None:
@@ -328,6 +354,211 @@ def kernel_phase(device, peaks):
     return worst, ms, plain_ms, max(ops_ms, bytes_ms), bound_by
 
 
+# ---------------------------------------------------------------- phase 3b
+
+def first_alignment(device):
+    """The inputs of the six DCNs of the main path's first alignment
+    (``gen_feat``'s ``PCDAlign``) on phase 4's seeded pair with the trained
+    weights: ``{name: (x, offset view, mask, weight, bias)}``."""
+    import torch
+    from stif_tpu_torch.nn.dcn import DCNSep
+    from stif_tpu_torch.ops import split_offset_mask
+
+    model = deployed_model().to(device).eval()
+    frames = np.random.default_rng(0).random((2,) + LR_HW + (3,)).astype(
+        np.float32)
+    seen = {}
+
+    def hook(name):
+        def fn(mod, args, out):
+            x, fea = args
+            off, mask = split_offset_mask(mod.conv_offset_mask(fea),
+                                          mod.deformable_groups,
+                                          mod.kernel_size)
+            seen[name] = (x, off, mask, mod.weight.detach(),
+                          mod.bias.detach())
+        return fn
+
+    hooks = [m.register_forward_hook(hook(n)) for n, m in
+             model.pcd_align.named_modules() if isinstance(m, DCNSep)]
+    with torch.no_grad():
+        model.gen_feat(torch.from_numpy(frames[None]).to(device))
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def dcn_case(device, B, hw, scale, stride=1, dilation=1, seed=0):
+    """x, a strided offset view of a raw conv output (offsets uniform in
+    +-``scale`` px), mask, weight and bias of a 64-channel DCN, 8 groups."""
+    import torch
+    from stif_tpu_torch.ops import split_offset_mask
+
+    g = torch.Generator().manual_seed(seed)
+    H, W = hw
+    Ho = (H + 2 - 2 * dilation - 1) // stride + 1
+    Wo = (W + 2 - 2 * dilation - 1) // stride + 1
+    x = torch.randn(B, H, W, 64, generator=g)
+    raw = torch.rand(B, Ho, Wo, 216, generator=g) * 2 - 1
+    raw[..., :144] *= scale
+    off, mask = split_offset_mask(raw.to(device), 8, 3)  # views on the card
+    w = torch.randn(64, 64, 3, 3, generator=g) / 24.0
+    b = torch.randn(64, generator=g) * 0.1
+    return [x.to(device), off, mask, w.to(device), b.to(device)]
+
+
+def dcn_check(label, inputs, stride=1, dilation=1, shift_bound=None):
+    """Each DCN kernel against its plain version, then the op (forward and
+    the gradients of x, offset, mask, weight and bias) against autograd
+    through the plain forward. Returns (max|d| of the columns, max|d| of
+    the backward kernel's outputs)."""
+    import torch
+    from stif_tpu_torch.ops import (dcn_col2im, dcn_col2im_plain, dcn_im2col,
+                                    dcn_im2col_plain, deform_conv2d,
+                                    deform_conv2d_plain)
+
+    x, off, mask, w, b = inputs
+    geo = (3, stride, 1, dilation, shift_bound)
+    cols = dcn_im2col(x, off, mask, *geo)
+    err_f = (cols - dcn_im2col_plain(x, off, mask, *geo)).abs().max().item()
+    gcols = torch.randn_like(cols)
+    got = dcn_col2im(gcols, x, off, mask, *geo)
+    err_b, rel_b = 0.0, 0.0
+    for g, want in zip(got, dcn_col2im_plain(gcols, x, off, mask, *geo)):
+        d = (g - want).abs().max().item()
+        err_b = max(err_b, d)
+        rel_b = max(rel_b, d / max(want.abs().max().item(), 1e-30))
+    kw = dict(stride=stride, dilation=dilation,
+              impl="patch" if shift_bound is None else "dense",
+              shift_bound=shift_bound)
+    cot = torch.randn(*off.shape[:3], w.shape[0], device=x.device)
+    res = []
+    for op in (deform_conv2d, deform_conv2d_plain):
+        ins = [v.detach().requires_grad_(True) for v in inputs]  # views kept
+        y = op(*ins, **kw)
+        (y * cot).sum().backward()
+        res.append([y.detach()] + [v.grad for v in ins])
+    torch.cuda.synchronize()
+    err_y = (res[0][0] - res[1][0]).abs().max().item()
+    rel_g = max((g - want).abs().max().item()
+                / max(want.abs().max().item(), 1e-30)
+                for g, want in zip(res[0][1:], res[1][1:]))
+    log(f"  {label}: columns max|d| {err_f:.3e}; backward kernel max|d| "
+        f"{err_b:.3e} ({rel_b:.3e} of max|g|); op forward max|d| "
+        f"{err_y:.3e}, gradients x / offset / mask / weight / bias "
+        f"{rel_g:.3e} of max|g|")
+    if not (err_f <= DCN_BAR and err_y <= DCN_BAR and rel_b <= DCN_BAR
+            and rel_g <= DCN_BAR):
+        raise AssertionError(f"{label}: a DCN kernel disagrees with its plain "
+                             f"version (bar {DCN_BAR})")
+    return err_f, err_b
+
+
+def dcn_bounds(x, off, cout, peaks):
+    """Least ms of the DCN pieces at one call's shapes, from bytes (each
+    input read once, each output written once) and FLOPs (the sampling's
+    multiply-adds and the products at the fp32 peak): {piece: (operations
+    ms, bytes ms)}."""
+    B, H, W, cin = x.shape
+    rows = off.shape[:5].numel()            # (b, q, g, k) samples
+    n_cols = rows * (cin // off.shape[3])   # column elements
+    Q = off.shape[:3].numel()
+    x_b, off_b, m_b, c_b = 4 * x.numel(), 8 * rows, 4 * rows, 4 * n_cols
+    w_b, out_b = 4 * (9 * cin * cout + cout), 4 * Q * cout
+    mm = 2 * Q * 9 * cin * cout             # one (Q, K*Cin) x (K*Cin, Cout)
+    work = {  # (FLOPs, bytes)
+        "im2col": (7 * n_cols, x_b + off_b + m_b + c_b),
+        "col2im": (16 * n_cols, c_b + 2 * (x_b + off_b + m_b)),
+        "forward": (7 * n_cols + mm, x_b + off_b + m_b + w_b + out_b),
+        "backward": (23 * n_cols + 2 * mm,
+                     out_b + 2 * (x_b + off_b + m_b + w_b)),
+    }
+    return {k: (1e3 * f / peaks[0], 1e3 * n / peaks[1])
+            for k, (f, n) in work.items()}
+
+
+def dcn_times(inputs, peaks, card):
+    """ms of each DCN kernel, of the op's forward (kernel + ``addmm``) and
+    of its backward, against the plain versions (CUDA events), beside the
+    bound of each. Returns {piece: (ms, plain ms, bound ms, bound by)}."""
+    import torch
+    from stif_tpu_torch.ops import (dcn_col2im, dcn_col2im_plain, dcn_im2col,
+                                    dcn_im2col_plain, deform_conv2d,
+                                    deform_conv2d_plain)
+
+    x, off, mask, w, b = inputs
+    cot = torch.randn(*off.shape[:3], w.shape[0], device=x.device)
+    gcols = torch.randn(off.shape[:3].numel(), 9 * x.shape[-1],
+                        device=x.device)
+    with torch.no_grad():
+        pieces = {
+            "im2col": (lambda: dcn_im2col(x, off, mask),
+                       lambda: dcn_im2col_plain(x, off, mask)),
+            "col2im": (lambda: dcn_col2im(gcols, x, off, mask),
+                       lambda: dcn_col2im_plain(gcols, x, off, mask)),
+            "forward": (lambda: deform_conv2d(x, off, mask, w, b),
+                        lambda: deform_conv2d_plain(x, off, mask, w, b)),
+        }
+        ms = {k: (cuda_ms(fk, 20), cuda_ms(fp, 5))
+              for k, (fk, fp) in pieces.items()}
+    bwd = []
+    for op in (deform_conv2d, deform_conv2d_plain):
+        ins = [v.detach().requires_grad_(True) for v in inputs]  # views kept
+        y = op(*ins)
+        bwd.append(cuda_ms(lambda: y.backward(cot, retain_graph=True),
+                           20 if op is deform_conv2d else 5))
+    ms["backward"] = tuple(bwd)
+    out = {}
+    for k, (o_ms, y_ms) in dcn_bounds(x, off, w.shape[0], peaks).items():
+        by = "operations" if o_ms >= y_ms else "bytes"
+        out[k] = (*ms[k], max(o_ms, y_ms), by)
+        log(f"  {k:8s}: kernel {ms[k][0]:.4f} ms, plain {ms[k][1]:.4f} ms, "
+            f"bound {max(o_ms, y_ms):.4f} ms ({by}; operations {o_ms:.4f}, "
+            f"bytes {y_ms:.4f}) [{card}]")
+    return out
+
+
+def dcn_kernel_phase(device, peaks, card):
+    """Phase 3b: the DCN kernels against their plain versions at the
+    encoder's shapes, then timed at the main path's largest call. Returns
+    {kernel: (max|d|, ms, plain ms, bound ms, bound by)}."""
+    import torch
+
+    trained = first_alignment(device)
+    errs = []
+    for lvl, hw in DCN_LEVELS.items():
+        errs.append(dcn_check(f"{lvl} {hw[0]}x{hw[1]} B 1, trained offsets",
+                              trained[f"{lvl}_dcnpack_1"]))
+        errs.append(dcn_check(f"{lvl} {hw[0]}x{hw[1]} B 1, offsets +-6 px",
+                              dcn_case(device, 1, hw, 6.0, seed=1)))
+    l1 = "L1 {}x{} B 1".format(*DCN_LEVELS["L1"])
+    errs.append(dcn_check(f"{l1}, zero offsets",
+                          dcn_case(device, 1, DCN_LEVELS["L1"], 0.0, seed=2)))
+    for k, side in enumerate((48, 24, 12)):  # a training batch's levels
+        errs.append(dcn_check(f"{side}x{side} B 4, offsets +-6 px",
+                              dcn_case(device, 4, (side, side), 6.0,
+                                       seed=3 + k)))
+    errs.append(dcn_check("48x80 B 1, stride 2, offsets +-6 px",
+                          dcn_case(device, 1, (48, 80), 6.0, stride=2,
+                                   seed=6), stride=2))
+    errs.append(dcn_check("48x80 B 1, dilation 2, offsets +-6 px",
+                          dcn_case(device, 1, (48, 80), 6.0, dilation=2,
+                                   seed=7), dilation=2))
+    errs.append(dcn_check(f"{l1}, shift_bound 2, offsets +-6 px",
+                          dcn_case(device, 1, DCN_LEVELS["L1"], 6.0, seed=8),
+                          shift_bound=2))
+    x, off, _, _, _ = trained["L1_dcnpack_1"]
+    Q, cin = off.shape[:3].numel(), x.shape[-1]
+    log(f"  timed at {l1}, trained offsets and weights: columns "
+        f"{Q} x {9 * cin} fp32, {4 * Q * 9 * cin / 1e6:.1f} MB written and "
+        f"read again; the addmm {2 * Q * 9 * cin * 64 / 1e9:.2f} GFLOP")
+    times = dcn_times(trained["L1_dcnpack_1"], peaks, card)
+    del trained
+    torch.cuda.empty_cache()
+    return {"dcn_im2col": (max(e for e, _ in errs), *times["im2col"]),
+            "dcn_col2im": (max(e for _, e in errs), *times["col2im"])}
+
+
 def device_profile(fn, wall_ms: float, what: str, card: str,
                    top: int = 12) -> None:
     """Device time of one call of ``fn`` by kernel (``torch.profiler``), and
@@ -346,13 +577,20 @@ def device_profile(fn, wall_ms: float, what: str, card: str,
     busy = sum(ms for _, ms, _ in rows)
     if not rows:
         log("  profile: the profiler saw no device time (not measured)")
-        return
+        return rows
     log(f"  profile: device busy {busy:.1f} ms per {what}; idle share "
         f"{1 - busy / wall_ms:.3f} of the unprofiled {wall_ms:.1f} ms "
         f"[{card}]")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
         log(f"    {ms:8.2f} ms {100 * ms / busy:5.1f} %  x{count:<5d} "
             f"{key[:90]}")
+    for label, words in (("DCN kernels", ("dcn_",)),
+                         ("index gathers / scatters", ("index", "gather"))):
+        hit = [(ms, n) for key, ms, n in rows
+               if any(w in key.lower() for w in words)]
+        log(f"    {label}: {sum(m for m, _ in hit):.2f} ms in "
+            f"{sum(n for _, n in hit)} launches")
+    return rows
 
 
 def main_path(card: str):
@@ -361,8 +599,9 @@ def main_path(card: str):
     import torch
     from stif_tpu_torch.convert import load_pth
     from stif_tpu_torch.models import LunaTokis
+    from stif_tpu_torch.nn.dcn import set_dcn_kernel
     from stif_tpu_torch.nn.siren import set_fused
-    from stif_tpu_torch.ops import siren_apply_fused
+    from stif_tpu_torch.ops import dcn_col2im, dcn_im2col, siren_apply_fused
     from stif_tpu_torch.runtime import InferencePipeline
 
     model = LunaTokis(rgb_skip=True, rgb_skip_bicubic=True)
@@ -375,6 +614,7 @@ def main_path(card: str):
     times = [i / N_TIMES for i in range(N_TIMES)]
 
     siren_apply_fused.launches = 0
+    dcn_im2col.launches = dcn_col2im.launches = 0
     torch.cuda.reset_peak_memory_stats()
     out = pipe.render_window(frames, times)  # warm-up
     window_s = []
@@ -383,6 +623,7 @@ def main_path(card: str):
         pipe.render_window(frames, times)
         window_s.append(time.perf_counter() - t0)
     launches = siren_apply_fused.launches
+    dcn = dcn_counts()
     peak = torch.cuda.max_memory_allocated()
     n_windows = 4
     expect = (N_TIMES, LR_HW[0] * SCALE, LR_HW[1] * SCALE, 3)
@@ -392,8 +633,13 @@ def main_path(card: str):
     if launches != 3 * n_windows:
         raise AssertionError(f"{launches} SIREN launches in {n_windows} "
                              "windows, expected 3 per window")
+    if dcn != (DCN_PER_PAIR * n_windows, 0):
+        raise AssertionError(f"DCN launches (forward, backward) {dcn} in "
+                             f"{n_windows} windows, expected {DCN_PER_PAIR} "
+                             "forward launches per window")
     log(f"  window {out.shape}, finite, SIREN launches {launches} in "
-        f"{n_windows} windows (3 per window)")
+        f"{n_windows} windows (3 per window), DCN forward launches "
+        f"{dcn[0]} ({DCN_PER_PAIR} per window), no backward")
     win = float(np.mean(window_s))
     log(f"  render_window: {1e3 * win:.1f} ms/window "
         f"(runs {', '.join(f'{1e3 * s:.1f}' for s in window_s)} ms), "
@@ -421,6 +667,36 @@ def main_path(card: str):
         f"{np.mean(dec):.1f} ms [{card}]")
     device_profile(lambda: pipe.render_window(frames, times), 1e3 * win,
                    "window", card)
+
+    # the same window with the plain DCN on the card, then both timed in
+    # turns and profiled
+    set_dcn_kernel(model, False)
+    dcn_im2col.launches = 0
+    plain = pipe.render_window(frames, times)
+    if dcn_im2col.launches:
+        raise AssertionError("the plain-DCN window launched a DCN kernel")
+    err = float(np.abs(out - plain).max())
+    log(f"  plain-DCN window: max|d| to the kernel window = {err:.3e}")
+    if not err <= WINDOW_BAR:
+        raise AssertionError(f"kernel window vs plain-DCN window: {err}")
+    walls = {True: [], False: []}
+    for _ in range(DCN_ALTERNATIONS):
+        for on in (True, False):
+            set_dcn_kernel(model, on)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.render_window(frames, times)
+            walls[on].append(1e3 * (time.perf_counter() - t0))
+    for on, what in ((True, "DCN kernels"), (False, "plain DCN")):
+        log(f"  window, {what}: median {np.median(walls[on]):.1f} ms (runs "
+            f"{', '.join(f'{v:.1f}' for v in walls[on])}), "
+            f"{DCN_ALTERNATIONS} alternating runs [{card}]")
+    for on, what in ((True, "window, DCN kernels"),
+                     (False, "window, plain DCN")):
+        set_dcn_kernel(model, on)
+        device_profile(lambda: pipe.render_window(frames, times),
+                       float(np.median(walls[on])), what, card, top=8)
+    set_dcn_kernel(model, True)
 
     # the same window with the plain SIREN on the card
     set_fused(model, False)
@@ -497,23 +773,42 @@ def slice_kernel_checks(device) -> float:
     return worst
 
 
+def dcn_counts():
+    from stif_tpu_torch.ops import dcn_col2im, dcn_im2col
+
+    return dcn_im2col.launches, dcn_col2im.launches
+
+
 class Launches:
-    """Counts kernel launches path by path: ``run`` sets the wrapper's count
-    to 0, drives one path, checks the count it read and adds it up."""
+    """Counts kernel launches path by path: ``run`` sets every wrapper's
+    count to 0, drives one path, checks the counts it read and adds them up.
+    ``dcn`` is the (forward, backward) DCN launches the path must make;
+    ``"some"`` asks for at least one forward launch, None for none at
+    all."""
 
     def __init__(self):
         self.total = 0
+        self.dcn = [0, 0]
 
-    def run(self, what: str, expect: int, fn):
-        from stif_tpu_torch.ops import siren_apply_fused
+    def run(self, what: str, expect: int, fn, dcn="some"):
+        from stif_tpu_torch.ops import (dcn_col2im, dcn_im2col,
+                                        siren_apply_fused)
 
         siren_apply_fused.launches = 0
+        dcn_im2col.launches = dcn_col2im.launches = 0
         out = fn()
         n = siren_apply_fused.launches
         if n != expect:
             raise AssertionError(f"{what}: {n} SIREN launches, expected "
                                  f"{expect}")
+        got = dcn_counts()
+        if (got[0] == 0 if dcn == "some" else
+                got != ((0, 0) if dcn is None else tuple(dcn))):
+            raise AssertionError(f"{what}: DCN launches (forward, backward) "
+                                 f"{got}, expected {dcn}")
         self.total += n
+        self.dcn = [a + b for a, b in zip(self.dcn, got)]
+        self.last = got
         return out
 
 
@@ -565,9 +860,11 @@ def fmt_runs(runs) -> str:
 
 
 def slice_phase(card: str, device) -> int:
-    """Phases 5b-5g. Returns the SIREN launches of every path driven."""
+    """Phases 5b-5g. Returns the ``Launches`` of every path
+    driven."""
     import torch
     from stif_tpu_torch.data.synthetic import render_sequence
+    from stif_tpu_torch.nn.dcn import set_dcn_kernel
     from stif_tpu_torch.nn.siren import set_fused
     from stif_tpu_torch.runtime import (ChunkedDecoder, InferencePipeline,
                                         pad_to_multiple)
@@ -583,7 +880,8 @@ def slice_phase(card: str, device) -> int:
     times = [i / N_TIMES for i in range(N_TIMES)]
     HH, WW = LR_HW[0] * SCALE, LR_HW[1] * SCALE
     window = count.run("render_window", 3,
-                       lambda: pipe.render_window(frames, times))
+                       lambda: pipe.render_window(frames, times),
+                       dcn=(DCN_PER_PAIR, 0))
 
     log("[5b] ChunkedDecoder.decode vs the full decode of the same features")
     x = torch.from_numpy(frames[None]).to(device)
@@ -591,21 +889,25 @@ def slice_phase(card: str, device) -> int:
     with torch.inference_mode():
         feat = model.gen_feat(x)
         full = count.run("decode", 3,
-                         lambda: model.decode(feat, x, t).cpu().numpy())
+                         lambda: model.decode(feat, x, t).cpu().numpy(),
+                         dcn=None)
     steps = -(-HH * WW // CHUNK)
     decoder = ChunkedDecoder(model, CHUNK)
     chunked = count.run("ChunkedDecoder.decode", 3 * steps,
-                        lambda: decoder.decode(feat, x, t, (HH, WW)))
+                        lambda: decoder.decode(feat, x, t, (HH, WW)),
+                        dcn=None)
     d = max_abs(chunked, full)
     require(f"chunked ({steps} steps of {CHUNK}) vs full decode, max|d|", d,
             d <= KERNEL_BAR)
     runs, peak = count.run(
         "ChunkedDecoder.decode, timed", TIMED_RUNS * 3 * steps,
-        lambda: timed(lambda: decoder.decode(feat, x, t, (HH, WW))))
+        lambda: timed(lambda: decoder.decode(feat, x, t, (HH, WW))),
+        dcn=None)
     with torch.inference_mode():
         full_runs, full_peak = count.run(
             "decode, timed", TIMED_RUNS * 3,
-            lambda: timed(lambda: model.decode(feat, x, t).cpu().numpy()))
+            lambda: timed(lambda: model.decode(feat, x, t).cpu().numpy()),
+            dcn=None)
     log(f"  chunked decode {fmt_runs(runs)}, peak {peak:.2f} GiB; full "
         f"decode {fmt_runs(full_runs)}, peak {full_peak:.2f} GiB (host copy "
         f"included) [{card}]")
@@ -618,7 +920,8 @@ def slice_phase(card: str, device) -> int:
     if both.shape != (2, N_TIMES, HH, WW, 3):
         raise AssertionError(f"render_pairs shape {both.shape}")
     ref_other = count.run("render_window", 3,
-                          lambda: pipe.render_window(other, times))
+                          lambda: pipe.render_window(other, times),
+                          dcn=(DCN_PER_PAIR, 0))
     d = max(max_abs(both[0], window), max_abs(both[1], ref_other))
     require("render_pairs vs render_window, max|d|", d, d <= WINDOW_BAR)
     runs, peak = count.run(
@@ -741,9 +1044,10 @@ def slice_phase(card: str, device) -> int:
     clips = [render_sequence(990_000 + k, 7, (144, 192)) for k in range(2)]
     n_windows = sum((c.shape[0] + 1) // 2 - 1 for c in clips)
 
-    def psnr_by_time(p, expect):
+    def psnr_by_time(p, expect, dcn="some"):
         scores = count.run("quality windows", expect * n_windows, lambda: [
-            s for clip in clips for s in _score_space_time_sr(p, clip)[0]])
+            s for clip in clips for s in _score_space_time_sr(p, clip)[0]],
+            dcn=dcn)
         return {tq: float(np.mean([ps for tt, ps, _ in scores if tt == tq]))
                 for tq in (0.0, 0.5)}
 
@@ -759,11 +1063,20 @@ def slice_phase(card: str, device) -> int:
         if not abs(kernel_q[tq] - plain_q[tq]) <= PSNR_BAR:
             raise AssertionError(f"kernel PSNR at t={tq} is off the plain "
                                  f"SIREN's by more than {PSNR_BAR} dB")
+    set_dcn_kernel(model, False)
+    plain_dcn_q = psnr_by_time(pipe, 3, dcn=None)
+    set_dcn_kernel(model, True)
+    log(f"  fp32, plain DCN:   PSNR t=0 {plain_dcn_q[0.0]:.4f} dB, t=0.5 "
+        f"{plain_dcn_q[0.5]:.4f} dB")
+    for tq in (0.0, 0.5):
+        if not abs(kernel_q[tq] - plain_dcn_q[tq]) <= PSNR_BAR:
+            raise AssertionError(f"DCN-kernel PSNR at t={tq} is off the "
+                                 f"plain DCN's by more than {PSNR_BAR} dB")
     for name, (p, expect) in knob_pipes.items():
         q = psnr_by_time(p, expect)
         log(f"  {name}: PSNR t=0 {q[0.0]:.4f} dB ({q[0.0] - kernel_q[0.0]:+.4f}"
             f"), t=0.5 {q[0.5]:.4f} dB ({q[0.5] - kernel_q[0.5]:+.4f})")
-    return count.total
+    return count
 
 
 # ----------------------------------------------------------------- phase 7
@@ -852,7 +1165,8 @@ def on_card_and_cpu(model, device):
 
 
 def zoo_phase(card: str, device) -> int:
-    """Phases 7b-7e. Returns the SIREN launches of every path driven."""
+    """Phases 7b-7e. Returns the ``Launches`` of every path
+    driven."""
     import tempfile
 
     import torch
@@ -1015,7 +1329,7 @@ def zoo_phase(card: str, device) -> int:
                 f"{vals[1]:.4f}, {res.avg_time_s:.2f} s")
             if not (res.psnr and np.isfinite(vals).all()):
                 raise AssertionError(f"{what}: {vals}")
-    return count.total
+    return count
 
 
 # ----------------------------------------------------------------- phase 8
@@ -1157,7 +1471,8 @@ def train_speed(opt: dict, card: str) -> None:
 
 
 def train_phase(card: str, device) -> int:
-    """Phases 8a-8f. Returns the SIREN launches of every path driven."""
+    """Phases 8a-8f. Returns the ``Launches`` of every path
+    driven."""
     import copy
     import importlib.util
     import logging
@@ -1178,6 +1493,12 @@ def train_phase(card: str, device) -> int:
     log("[8a] train steps at the r5 config's full width: ms, split, "
         "samples/s, peak, profile")
     count.run("train steps", 0, lambda: train_speed(opt, card))
+    n_steps = len(TRAIN_BUCKETS) * (WARM_STEPS + TIMED_STEPS) + 1
+    fwd, bwd = count.last
+    log(f"  DCN launches in {n_steps} steps: {fwd} forward, {bwd} backward")
+    if bwd != DCN_PER_PAIR * n_steps:
+        raise AssertionError(f"{bwd} DCN backward launches in {n_steps} "
+                             f"train steps, expected {DCN_PER_PAIR} a step")
     torch.cuda.empty_cache()
 
     log("[8b] ten steps on one fixed x4 batch, warmup off: the loss falls")
@@ -1211,9 +1532,14 @@ def train_phase(card: str, device) -> int:
         m.feed_data(one)
         t0 = time.perf_counter()
         logs.append(count.run(f"train step on {dev}", 0,
-                              m.optimize_parameters))
+                              m.optimize_parameters,
+                              dcn=None if dev == "cpu" else "some"))
         log(f"  {dev}: loss {logs[-1]['loss']:.6f}, grad norm "
-            f"{logs[-1]['grad_norm']:.4f}, {time.perf_counter() - t0:.2f} s")
+            f"{logs[-1]['grad_norm']:.4f}, {time.perf_counter() - t0:.2f} s; "
+            f"DCN launches (forward, backward) {count.last}")
+        if dev != "cpu" and count.last[1] != DCN_PER_PAIR:
+            raise AssertionError(f"{count.last[1]} DCN backward launches in "
+                                 f"one step, expected {DCN_PER_PAIR}")
         grads.append({n: p.grad.cpu() for n, p in m.net.named_parameters()
                       if p.grad is not None})
         del m
@@ -1320,7 +1646,7 @@ def train_phase(card: str, device) -> int:
         if " step " in line or "val @" in line:
             log("    " + line.split(" INFO ")[-1])
     tmp.cleanup()
-    return count.total
+    return count
 
 
 # ----------------------------------------------------------------- phase 9
@@ -1434,7 +1760,8 @@ def torchrun_phase(opt: dict, tmp: str, card: str) -> None:
 
 
 def parallel_phase(card: str, device) -> int:
-    """Phases 9a-9e. Returns the SIREN launches of every path driven."""
+    """Phases 9a-9e. Returns the ``Launches`` of every path
+    driven."""
     import tempfile
 
     import torch
@@ -1477,26 +1804,26 @@ def parallel_phase(card: str, device) -> int:
     if two.n_par != 2:
         raise AssertionError(f"n_par {two.n_par}")
     want = count.run("ChunkedDecoder, one device", 3 * steps,
-                     lambda: one.decode(feat, x, t, (HH, WW)))
+                     lambda: one.decode(feat, x, t, (HH, WW)), dcn=None)
     C = min(CHUNK, -(-HH * WW // 2))
     mesh_chunks = 2 * -(-HH * WW // (2 * C))
     got = count.run("ChunkedDecoder, mesh n_par 2", 3 * mesh_chunks,
-                    lambda: two.decode(feat, x, t, (HH, WW)))
+                    lambda: two.decode(feat, x, t, (HH, WW)), dcn=None)
     d = max_abs(got, want)
     require(f"mesh ({mesh_chunks // 2} steps of 2 x {C} queries) vs one "
             "device, max|d|", d, d <= MESH_BAR)
     size1 = ChunkedDecoder(model, CHUNK, mesh=default_mesh())
     same = count.run("ChunkedDecoder, default_mesh() of size 1", 3 * steps,
-                     lambda: size1.decode(feat, x, t, (HH, WW)))
+                     lambda: size1.decode(feat, x, t, (HH, WW)), dcn=None)
     if size1.n_par != 1 or not np.array_equal(same, want):
         raise AssertionError("a mesh of size 1 differs from no mesh")
     log("  default_mesh() (size 1) output bitwise equal to no mesh")
     runs, peak = count.run(
         "ChunkedDecoder mesh, timed", TIMED_RUNS * 3 * mesh_chunks,
-        lambda: timed(lambda: two.decode(feat, x, t, (HH, WW))))
+        lambda: timed(lambda: two.decode(feat, x, t, (HH, WW))), dcn=None)
     runs1, _ = count.run(
         "ChunkedDecoder one device, timed", TIMED_RUNS * 3 * steps,
-        lambda: timed(lambda: one.decode(feat, x, t, (HH, WW))))
+        lambda: timed(lambda: one.decode(feat, x, t, (HH, WW))), dcn=None)
     log(f"  mesh n_par 2 {fmt_runs(runs)}, peak {peak:.2f} GiB; one device "
         f"{fmt_runs(runs1)} [{card}]")
     del feat, one, two, size1
@@ -1599,7 +1926,7 @@ def parallel_phase(card: str, device) -> int:
     require("deform_psroi_pool (32 rois, 7x7 bins, 392 channels), max|d|",
             d_psroi, d_psroi <= MESH_BAR and torch.equal(gcnt.cpu(), wcnt))
     tmp.cleanup()
-    return count.total
+    return count
 
 
 def train_state(model) -> dict:
@@ -1656,7 +1983,7 @@ def main() -> int:
         "False (fp32 parity)")
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["siren_fused"])
+    logs = cuda_build.build(["siren_fused", "deform_conv"])
     log(f"[2] build: {time.perf_counter() - t0:.1f} s")
     for kname, text in logs.items():
         for line in text.splitlines():
@@ -1666,6 +1993,9 @@ def main() -> int:
     log("[3] kernels vs plain, then timed at the main path's shapes")
     err, ms, plain_ms, bound_ms, bound_by = kernel_phase(device, peaks)
     torch.cuda.synchronize()
+    log("[3b] DCN kernels vs plain at the encoder's shapes (trained, +-6 px "
+        "and zero offsets, stride 2, dilation 2, shift_bound 2), then timed")
+    dcn = dcn_kernel_phase(device, peaks, card)
     if "--kernels" in sys.argv[1:]:
         log("[5a] kernel vs plain at the chunked stages' shapes")
         err = max(err, slice_kernel_checks(device))
@@ -1677,19 +2007,25 @@ def main() -> int:
 
     log("[4] main path: InferencePipeline.render_window, trained weights")
     launches = main_path(card)
+    dcn_launches = [DCN_PER_PAIR * 4, 0]  # main_path's four counted windows
+
+    def add(count):
+        dcn_launches[0] += count.dcn[0]
+        dcn_launches[1] += count.dcn[1]
+        return count.total
 
     log("[5a] kernel vs plain at the chunked stages' shapes")
     err = max(err, slice_kernel_checks(device))
-    launches += slice_phase(card, device)
+    launches += add(slice_phase(card, device))
 
     log("[7a] kernel vs plain at the model zoo's six nets, then timed")
     err = max(err, zoo_kernel_phase(device, peaks))
-    launches += zoo_phase(card, device)
+    launches += add(zoo_phase(card, device))
 
-    launches += train_phase(card, device)
+    launches += add(train_phase(card, device))
 
     t9 = time.perf_counter()
-    launches += parallel_phase(card, device)
+    launches += add(parallel_phase(card, device))
     log(f"    phase 9: {time.perf_counter() - t9:.1f} s")
 
     kernels = {"kernels": [{
@@ -1704,10 +2040,25 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}
-    log(f"[6] done in {time.perf_counter() - t_start:.1f} s; kernel times "
-        "are the sum of the deployed model's three nets of one window, "
-        "launches the sum over every path driven")
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "stif_tpu_torch/csrc/deform_conv.cu",
+        "replaces": replaces,  # XLA gathers: the JAX package has no Pallas
+        "launches": n,         # kernel for the DCN
+        "max_abs_err": dcn[name][0],
+        "ms": dcn[name][1],
+        "plain_ms": dcn[name][2],
+        "bound_ms": dcn[name][3],
+        "bound_by": dcn[name][4],
+        "library_ms": None,  # no PyTorch call computes a deformable conv
+    } for name, replaces, n in (
+        ("dcn_im2col", "stif_tpu/ops/deform_conv.py:236", dcn_launches[0]),
+        ("dcn_col2im", "stif_tpu/ops/deform_conv.py:161", dcn_launches[1]))]}
+    log(f"[6] done in {time.perf_counter() - t_start:.1f} s; SIREN kernel "
+        "times are the sum of the deployed model's three nets of one window, "
+        "DCN kernel times those of one L1 call (96x160, B 1); launches the "
+        "sum over every path driven")
     log(card)
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

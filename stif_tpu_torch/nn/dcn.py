@@ -1,5 +1,7 @@
 """DCN_sep: deformable conv whose offsets and mask come from another feature
-map (port of ``stif_tpu/nn/dcn.py``)."""
+map (port of ``stif_tpu/nn/dcn.py``). ``impl`` and ``shift_bound`` pick the
+DCN implementation as in the JAX package (``ops/deform_conv.py``); on the
+card the op runs the DCN kernels."""
 
 from __future__ import annotations
 
@@ -9,20 +11,26 @@ import torch
 import torch.nn as nn
 
 from stif_tpu_torch.nn.blocks import Conv
-from stif_tpu_torch.ops.deform_conv import deform_conv2d, split_offset_mask
+from stif_tpu_torch.ops.deform_conv import (deform_conv2d,
+                                            deform_conv2d_plain,
+                                            split_offset_mask)
 
 
 class DCNSep(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 1,
                  dilation: int = 1, deformable_groups: int = 8,
-                 gather_dtype=None):
+                 gather_dtype=None, impl: str = "auto",
+                 shift_bound: int = 6):
         super().__init__()
         k = kernel_size
         self.stride, self.padding, self.dilation = stride, padding, dilation
         self.kernel_size = k
         self.deformable_groups = deformable_groups
         self.gather_dtype = gather_dtype  # e.g. torch.bfloat16 gather source
+        self.impl = impl                  # "auto" / "patch" / "dense" / "window"
+        self.shift_bound = shift_bound    # dense: max |shift| covered
+        self.use_kernel = True  # False: plain PyTorch (``set_dcn_kernel``)
         # zero-initialised: a fresh DCNSep samples the regular grid
         self.conv_offset_mask = Conv(in_channels, deformable_groups * 3 * k * k,
                                      k, stride, padding)
@@ -39,7 +47,19 @@ class DCNSep(nn.Module):
         offset, mask = split_offset_mask(self.conv_offset_mask(fea),
                                          self.deformable_groups,
                                          self.kernel_size)
-        return deform_conv2d(x, offset, mask, self.weight, self.bias,
-                             stride=self.stride, padding=self.padding,
-                             dilation=self.dilation,
-                             gather_dtype=self.gather_dtype)
+        op = deform_conv2d if self.use_kernel else deform_conv2d_plain
+        return op(x, offset, mask, self.weight, self.bias,
+                  stride=self.stride, padding=self.padding,
+                  dilation=self.dilation, impl=self.impl,
+                  gather_dtype=self.gather_dtype,
+                  shift_bound=self.shift_bound)
+
+
+def set_dcn_kernel(model: nn.Module, on: bool) -> None:
+    """Run every ``DCNSep`` of ``model`` through the DCN op
+    (``deform_conv2d``: the kernels on the card), or, with ``on`` False,
+    through its plain PyTorch form differentiated by autograd: the yardstick
+    the kernels are held against on the card."""
+    for m in model.modules():
+        if isinstance(m, DCNSep):
+            m.use_kernel = on

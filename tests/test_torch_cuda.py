@@ -544,3 +544,135 @@ def test_mesh_chunked_decoder_over_cards(small_model, n):
     steps = -(-32 * 48 // (300 * n))
     assert siren_apply_fused.launches == before + 3 * n * steps
     assert np.abs(got - one).max() <= 1e-5
+
+
+# ------------------------------------------------------------ DCN kernels
+
+def _dcn_inputs(device, B, H, W, Cin, G, stride=1, dilation=1, scale=6.0,
+                strided=False, seed=0):
+    """x, offset and mask of a 3x3 DCN; with ``strided`` the offset is the
+    view ``split_offset_mask`` makes of a raw conv output."""
+    from stif_tpu_torch.ops import split_offset_mask
+
+    g = torch.Generator().manual_seed(seed)
+    Ho = (H + 2 - 2 * dilation - 1) // stride + 1
+    Wo = (W + 2 - 2 * dilation - 1) // stride + 1
+    x = torch.randn(B, H, W, Cin, generator=g).to(device)
+    if strided:  # split on the card: a copy to it would be contiguous
+        raw = (torch.rand(B, Ho, Wo, 27 * G, generator=g) * 2 - 1) * scale
+        return [x, *split_offset_mask(raw.to(device), G, 3)]
+    off = (torch.rand(B, Ho, Wo, G, 9, 2, generator=g) * 2 - 1) * scale
+    mask = torch.rand(B, Ho, Wo, G, 9, generator=g)
+    return [x, off.to(device), mask.to(device)]
+
+
+@pytest.mark.parametrize("B,H,W,Cin,G,stride,dilation,S,strided", [
+    (1, 96, 160, 64, 8, 1, 1, None, True),    # L1 of a serving window
+    (4, 12, 12, 64, 8, 1, 1, None, False),    # L3 of a training batch
+    (2, 7, 9, 24, 4, 1, 1, None, False),      # CpG 6: the scalar path
+    (2, 13, 11, 16, 8, 2, 1, None, True),     # stride 2
+    (1, 9, 10, 32, 4, 1, 2, None, False),     # dilation 2
+    (2, 17, 19, 64, 8, 1, 1, 2, True),        # shift bound 2, offsets +-6
+])
+def test_dcn_kernels_match_plain(cuda, B, H, W, Cin, G, stride, dilation, S,
+                                 strided):
+    """``dcn_im2col`` and ``dcn_col2im`` against their plain versions at
+    ragged sizes, strided offset views and a shift bound: columns within
+    1e-4, gradients within 1e-4 x max|g| (atomics sum in any order)."""
+    from stif_tpu_torch.ops import (dcn_col2im, dcn_col2im_plain, dcn_im2col,
+                                    dcn_im2col_plain)
+
+    x, off, mask = _dcn_inputs(cuda, B, H, W, Cin, G, stride, dilation,
+                               strided=strided)
+    assert off.is_contiguous() != strided
+    geo = (3, stride, 1, dilation, S)
+    before = dcn_im2col.launches, dcn_col2im.launches
+    cols = dcn_im2col(x, off, mask, *geo)
+    want = dcn_im2col_plain(x, off, mask, *geo)
+    assert (cols - want).abs().max().item() <= 1e-4
+    gcols = torch.randn_like(cols)
+    got = dcn_col2im(gcols, x, off, mask, *geo)
+    torch.cuda.synchronize()
+    assert (dcn_im2col.launches, dcn_col2im.launches) == (
+        before[0] + 1, before[1] + 1)
+    for g, w in zip(got, dcn_col2im_plain(gcols, x, off, mask, *geo)):
+        assert g.shape == w.shape
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_deform_conv2d_on_the_card_matches_autograd_of_plain(cuda, bias):
+    """The Function on the card (forward and backward kernels, one
+    ``addmm``) against autograd through the plain forward on the card, with
+    and without a bias; the launches it makes: one forward, then one of each
+    in the backward."""
+    from stif_tpu_torch.ops import (dcn_col2im, dcn_im2col, deform_conv2d,
+                                    deform_conv2d_plain)
+
+    x, off, mask = _dcn_inputs(cuda, 2, 24, 40, 64, 8, strided=True)
+    g = torch.Generator().manual_seed(1)
+    w = (torch.randn(64, 64, 3, 3, generator=g) * 0.05).to(cuda)
+    b = torch.randn(64, generator=g).to(cuda) if bias else None
+    cot = torch.randn(2, 24, 40, 64, generator=g).to(cuda)
+    grads = []
+    for op in (deform_conv2d, deform_conv2d_plain):
+        ins = [v.detach().clone().requires_grad_(True) for v in (x, off, mask,
+                                                                 w)]
+        bb = None if b is None else b.clone().requires_grad_(True)
+        before = dcn_im2col.launches, dcn_col2im.launches
+        y = op(*ins, bb, impl="patch")
+        n_fwd = dcn_im2col.launches - before[0]
+        (y * cot).sum().backward()
+        torch.cuda.synchronize()
+        if op is deform_conv2d:
+            assert n_fwd == 1
+            assert (dcn_im2col.launches, dcn_col2im.launches) == (
+                before[0] + 2, before[1] + 1)
+        else:
+            assert (dcn_im2col.launches, dcn_col2im.launches) == before
+        grads.append([y.detach()] + [v.grad for v in ins]
+                     + ([] if bb is None else [bb.grad]))
+    for got, want in zip(*grads):
+        assert (got - want).abs().max().item() <= 1e-4 * max(
+            1.0, want.abs().max().item())
+
+
+def test_dcn_kernels_refuse_bad_inputs(cuda):
+    """On the card the op launches the kernels or raises: fp16, an operand
+    left on the CPU, a float64 weight; no launch is made for them."""
+    from stif_tpu_torch.ops import dcn_im2col, deform_conv2d
+
+    x, off, mask = _dcn_inputs(cuda, 1, 8, 8, 16, 4)
+    w = torch.randn(8, 16, 3, 3, device=cuda)
+    before = dcn_im2col.launches
+    with pytest.raises(ValueError, match="float32"):
+        deform_conv2d(x.half(), off, mask, w)
+    with pytest.raises(ValueError, match="float32"):
+        deform_conv2d(x, off.cpu(), mask, w)
+    with pytest.raises(ValueError, match="float32"):
+        deform_conv2d(x, off, mask, w.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        dcn_im2col(x.transpose(1, 2), off, mask)
+    assert dcn_im2col.launches == before
+    deform_conv2d(x, off, mask, w)
+    assert dcn_im2col.launches == before + 1
+
+
+def test_model_on_the_card_launches_the_dcn_kernels(small_model):
+    """A window of the small model launches the forward kernel once per DCN
+    call (7 PCD pyramids of 6, both ConvLSTM directions in one batch) and
+    agrees with the same model on the plain DCN."""
+    from stif_tpu_torch.nn.dcn import set_dcn_kernel
+    from stif_tpu_torch.ops import dcn_im2col
+
+    build, x, times = small_model
+    model = build()
+    before = dcn_im2col.launches
+    with torch.inference_mode():
+        got = model(x, times)
+    assert dcn_im2col.launches == before + 42
+    set_dcn_kernel(model, False)
+    with torch.inference_mode():
+        want = model(x, times)
+    assert dcn_im2col.launches == before + 42
+    assert (got - want).abs().max().item() <= 1e-4
