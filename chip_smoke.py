@@ -15,24 +15,27 @@ Run from the root of a checkout. In order:
    contiguous fields, then the decoder's real layouts (column slices of a
    198-wide tensor, fields broadcast over the time axis, ragged row
    counts), and the kernel's sine against a float64 sine; then timed at the main path's shapes (LR 96x160, 8 times, x4);
-3b. the DCN kernels (``dcn_im2col``, ``dcn_col2im``) against their plain
-   versions at the encoder's levels L1 96x160, L2 48x80, L3 24x40 (B 1)
-   with the trained offsets of the main path's first alignment and with
-   offsets of +-6 px, zero offsets at L1, a training batch's levels (B 4,
-   48, 24, 12), stride 2, dilation 2 and ``shift_bound`` 2: the columns
-   within 1e-4, the backward kernel within 1e-4 x max|g|, and the op's
-   forward (1e-4) and its gradients of x, offset, mask, weight and bias
+3b. the DCN kernels (``dcn_forward``, the fused sample-and-contract
+   forward, and ``dcn_backward``) against their plain versions at the
+   encoder's levels L1 96x160, L2 48x80, L3 24x40 (B 1) with the trained
+   offsets of the main path's first alignment and with offsets of +-6 px,
+   zero offsets at L1, a training batch's levels (B 4, 48, 24, 12), stride
+   2, dilation 2 and ``shift_bound`` 2: the forward within 1e-4, the
+   gradients of x, offset, mask and weight within 1e-4 x max|g|, and the
+   op's forward (1e-4) and its gradients of x, offset, mask, weight and bias
    (1e-4 x max|g|) against autograd through the plain forward; then timed
-   at L1 (each kernel, the op's forward and backward, their plain versions
-   and bounds);
+   at L1 (each kernel, the op's backward, their plain versions and bounds:
+   the products at 3 TF32 passes on the tensor cores, the fp32 figure
+   beside) and at each of the window's six call shapes (L1, L2, L3 at B 1
+   and B 2), summed over a window's 42 calls beside the window's bound;
 4. main path: the deployed full-width model (``rgb_skip`` bicubic) with the
    trained weights ``weights/trained_best_G.pth`` through
    ``InferencePipeline.render_window`` on a seeded 96x160 LR pair at 8 times:
    shape and finiteness, kernel launches per window, the same window with
    the plain SIREN (max|d| <= 1e-3), a small window against the port on the
    CPU (max|d| <= 1e-3), timings, and one window's device time by kernel;
-   42 DCN forward launches per window, the window with the plain DCN (max|d|
-   <= 1e-3), both timed in 5 alternating runs and profiled;
+   42 ``dcn_forward`` launches per window, the window with the plain DCN
+   (max|d| <= 1e-3), both timed in 5 alternating runs and profiled;
 5. the rest of the serving surface, same model, weights and pair:
    a. the kernel against plain at the chunked stages' shapes (8 x 65,536
       rows, separate contiguous fields), at a batch of two (fields broadcast
@@ -75,13 +78,14 @@ Run from the root of a checkout. In order:
       step the bucket, loss and grad norm; then ms per step by CUDA events
       (median, min, max), the forward / backward / optimizer split,
       samples/s, peak memory, and at x4 one profiled step's top kernels and
-      the device's idle share; no SIREN launch, 42 DCN backward launches a
-      step;
+      the device's idle share; no SIREN launch, 78 ``dcn_forward`` (42,
+      and 36 recomputed by the ConvLSTM's remat) and 42 ``dcn_backward``
+      launches a step;
    b. ten steps on one fixed x4 batch with warmup off: the loss falls;
    c. one step from the same init on the card and on the CPU (B 1, LR
       16x16, nt 2): loss within rtol 1e-4, grad norm within rtol 1e-3, and
       the largest per-parameter gradient difference; the card's step runs
-      the DCN kernels (42 backward launches);
+      the DCN kernels (78 forward and 42 backward launches);
    d. save after [8b]'s steps, resume into a fresh model: params, Adam
       moments, step and EMA bitwise equal, the next loss within rtol 1e-5;
    e. a ``Validator`` probe (1 dev scene, 144x192) through the kernel and
@@ -159,14 +163,19 @@ ZOO_NETS = {
     "noflow_feat": ([200, 1], [201, 64, 64, 256, 256, 256, 3]),
 }
 # published dense peaks without sparsity (NVIDIA data sheets): fp32 on the
-# CUDA cores, and device-memory bandwidth
-PEAKS = {"SXM": (67e12, 3.35e12), "PCIe": (51e12, 2.0e12)}
+# CUDA cores, device-memory bandwidth, and TF32 on the tensor cores
+PEAKS = {"SXM": (67e12, 3.35e12, 495e12), "PCIe": (51e12, 2.0e12, 378e12)}
 # DCN calls per LR pair: 13 alignments of 6 DCNs (one in gen_feat, two per
 # ConvLSTM step over 3 steps in each direction); the port runs the two
 # directions as one batch, so 7 pyramids of 6 calls
 DCN_PER_PAIR = 42
 DCN_BAR = 1e-4      # DCN kernels vs plain: forward max|d|, gradients / max|g|
 DCN_LEVELS = {"L1": (96, 160), "L2": (48, 80), "L3": (24, 40)}
+# a window's DCN calls by shape: each of the 7 pyramids runs 2 DCNs at each
+# level, gen_feat's at B 1 and the ConvLSTM's 6 at B 2 (both directions)
+DCN_WINDOW_CALLS = {(lvl, b): 2 * n for lvl in DCN_LEVELS
+                    for b, n in ((1, 1), (2, 6))}
+DCN_STEP_FORWARD = 78  # a train step: 42, and 36 recomputed by remat
 DCN_ALTERNATIONS = 5  # [4]: windows timed with the DCN kernels and plain
 
 
@@ -410,21 +419,22 @@ def dcn_case(device, B, hw, scale, stride=1, dilation=1, seed=0):
 def dcn_check(label, inputs, stride=1, dilation=1, shift_bound=None):
     """Each DCN kernel against its plain version, then the op (forward and
     the gradients of x, offset, mask, weight and bias) against autograd
-    through the plain forward. Returns (max|d| of the columns, max|d| of
-    the backward kernel's outputs)."""
+    through the plain forward. Returns (max|d| of the forward, max|d| of
+    the backward kernel's gradients)."""
     import torch
-    from stif_tpu_torch.ops import (dcn_col2im, dcn_col2im_plain, dcn_im2col,
-                                    dcn_im2col_plain, deform_conv2d,
-                                    deform_conv2d_plain)
+    from stif_tpu_torch.ops import (dcn_backward, dcn_backward_plain,
+                                    dcn_forward, dcn_forward_plain,
+                                    deform_conv2d, deform_conv2d_plain)
 
     x, off, mask, w, b = inputs
-    geo = (3, stride, 1, dilation, shift_bound)
-    cols = dcn_im2col(x, off, mask, *geo)
-    err_f = (cols - dcn_im2col_plain(x, off, mask, *geo)).abs().max().item()
-    gcols = torch.randn_like(cols)
-    got = dcn_col2im(gcols, x, off, mask, *geo)
+    geo = (stride, 1, dilation, shift_bound)
+    out = dcn_forward(x, off, mask, w, b, *geo)
+    err_f = (out - dcn_forward_plain(x, off, mask, w, b, *geo)
+             ).abs().max().item()
+    g_out = torch.randn_like(out)
+    got = dcn_backward(g_out, x, off, mask, w, *geo)
     err_b, rel_b = 0.0, 0.0
-    for g, want in zip(got, dcn_col2im_plain(gcols, x, off, mask, *geo)):
+    for g, want in zip(got, dcn_backward_plain(g_out, x, off, mask, w, *geo)):
         d = (g - want).abs().max().item()
         err_b = max(err_b, d)
         rel_b = max(rel_b, d / max(want.abs().max().item(), 1e-30))
@@ -443,7 +453,7 @@ def dcn_check(label, inputs, stride=1, dilation=1, shift_bound=None):
     rel_g = max((g - want).abs().max().item()
                 / max(want.abs().max().item(), 1e-30)
                 for g, want in zip(res[0][1:], res[1][1:]))
-    log(f"  {label}: columns max|d| {err_f:.3e}; backward kernel max|d| "
+    log(f"  {label}: forward max|d| {err_f:.3e}; backward kernel max|d| "
         f"{err_b:.3e} ({rel_b:.3e} of max|g|); op forward max|d| "
         f"{err_y:.3e}, gradients x / offset / mask / weight / bias "
         f"{rel_g:.3e} of max|g|")
@@ -455,74 +465,113 @@ def dcn_check(label, inputs, stride=1, dilation=1, shift_bound=None):
 
 
 def dcn_bounds(x, off, cout, peaks):
-    """Least ms of the DCN pieces at one call's shapes, from bytes (each
-    input read once, each output written once) and FLOPs (the sampling's
-    multiply-adds and the products at the fp32 peak): {piece: (operations
-    ms, bytes ms)}."""
+    """Least ms of the DCN's forward and backward at one call's shapes:
+    {piece: (operations ms, bytes ms, operations ms with the products at
+    the fp32 peak)}. Bytes: each input read once, each output written once
+    (forward: x, offset, mask, weight, bias, out; backward: grad_out, x,
+    offset, mask, weight and the gradients of x, offset, mask, weight).
+    Operations: the products at the rate the kernels run them, three TF32
+    passes on the tensor cores, plus the sampling's fp32 multiply-adds on
+    the CUDA cores (7 per column element forward, 23 backward)."""
     B, H, W, cin = x.shape
     rows = off.shape[:5].numel()            # (b, q, g, k) samples
     n_cols = rows * (cin // off.shape[3])   # column elements
     Q = off.shape[:3].numel()
-    x_b, off_b, m_b, c_b = 4 * x.numel(), 8 * rows, 4 * rows, 4 * n_cols
-    w_b, out_b = 4 * (9 * cin * cout + cout), 4 * Q * cout
+    x_b, off_b, m_b = 4 * x.numel(), 8 * rows, 4 * rows
+    w_b, out_b = 4 * 9 * cin * cout, 4 * Q * cout
     mm = 2 * Q * 9 * cin * cout             # one (Q, K*Cin) x (K*Cin, Cout)
-    work = {  # (FLOPs, bytes)
-        "im2col": (7 * n_cols, x_b + off_b + m_b + c_b),
-        "col2im": (16 * n_cols, c_b + 2 * (x_b + off_b + m_b)),
-        "forward": (7 * n_cols + mm, x_b + off_b + m_b + w_b + out_b),
-        "backward": (23 * n_cols + 2 * mm,
+    work = {  # (product FLOPs, sampling FLOPs, bytes)
+        "forward": (mm, 7 * n_cols, x_b + off_b + m_b + w_b + 4 * cout
+                    + out_b),
+        "backward": (2 * mm, 23 * n_cols,
                      out_b + 2 * (x_b + off_b + m_b + w_b)),
     }
-    return {k: (1e3 * f / peaks[0], 1e3 * n / peaks[1])
-            for k, (f, n) in work.items()}
+    fp32, bw, tf32 = peaks
+    return {k: (1e3 * (3 * p / tf32 + f / fp32), 1e3 * n / bw,
+                1e3 * (p + f) / fp32)
+            for k, (p, f, n) in work.items()}
 
 
-def dcn_times(inputs, peaks, card):
-    """ms of each DCN kernel, of the op's forward (kernel + ``addmm``) and
-    of its backward, against the plain versions (CUDA events), beside the
-    bound of each. Returns {piece: (ms, plain ms, bound ms, bound by)}."""
+def dcn_times(inputs, peaks, card, reps=20):
+    """ms of each DCN kernel and of the op's backward (autograd, bias sum
+    included) against the plain versions (CUDA events), beside the bound of
+    each. Returns {piece: (ms, plain ms, bound ms, bound by)}."""
     import torch
-    from stif_tpu_torch.ops import (dcn_col2im, dcn_col2im_plain, dcn_im2col,
-                                    dcn_im2col_plain, deform_conv2d,
-                                    deform_conv2d_plain)
+    from stif_tpu_torch.ops import (dcn_backward, dcn_backward_plain,
+                                    dcn_forward, dcn_forward_plain,
+                                    deform_conv2d, deform_conv2d_plain)
 
     x, off, mask, w, b = inputs
     cot = torch.randn(*off.shape[:3], w.shape[0], device=x.device)
-    gcols = torch.randn(off.shape[:3].numel(), 9 * x.shape[-1],
-                        device=x.device)
     with torch.no_grad():
         pieces = {
-            "im2col": (lambda: dcn_im2col(x, off, mask),
-                       lambda: dcn_im2col_plain(x, off, mask)),
-            "col2im": (lambda: dcn_col2im(gcols, x, off, mask),
-                       lambda: dcn_col2im_plain(gcols, x, off, mask)),
-            "forward": (lambda: deform_conv2d(x, off, mask, w, b),
-                        lambda: deform_conv2d_plain(x, off, mask, w, b)),
+            "forward": (lambda: dcn_forward(x, off, mask, w, b),
+                        lambda: dcn_forward_plain(x, off, mask, w, b)),
+            "backward": (lambda: dcn_backward(cot, x, off, mask, w),
+                         lambda: dcn_backward_plain(cot, x, off, mask, w)),
         }
-        ms = {k: (cuda_ms(fk, 20), cuda_ms(fp, 5))
+        ms = {k: (cuda_ms(fk, reps), cuda_ms(fp, 5))
               for k, (fk, fp) in pieces.items()}
     bwd = []
     for op in (deform_conv2d, deform_conv2d_plain):
         ins = [v.detach().requires_grad_(True) for v in inputs]  # views kept
         y = op(*ins)
         bwd.append(cuda_ms(lambda: y.backward(cot, retain_graph=True),
-                           20 if op is deform_conv2d else 5))
-    ms["backward"] = tuple(bwd)
+                           reps if op is deform_conv2d else 5))
+    bounds = dcn_bounds(x, off, w.shape[0], peaks)
     out = {}
-    for k, (o_ms, y_ms) in dcn_bounds(x, off, w.shape[0], peaks).items():
+    for k, (o_ms, y_ms, f_ms) in bounds.items():
         by = "operations" if o_ms >= y_ms else "bytes"
         out[k] = (*ms[k], max(o_ms, y_ms), by)
         log(f"  {k:8s}: kernel {ms[k][0]:.4f} ms, plain {ms[k][1]:.4f} ms, "
-            f"bound {max(o_ms, y_ms):.4f} ms ({by}; operations {o_ms:.4f}, "
-            f"bytes {y_ms:.4f}) [{card}]")
+            f"bound {max(o_ms, y_ms):.4f} ms ({by}; operations {o_ms:.4f} "
+            f"at 3xTF32, {f_ms:.4f} at the fp32 peak; bytes {y_ms:.4f}), "
+            f"{100 * max(o_ms, y_ms) / ms[k][0]:.0f} % of the bound "
+            f"[{card}]")
+    log(f"  op backward (autograd, bias sum included): {bwd[0]:.4f} ms, "
+        f"plain {bwd[1]:.4f} ms [{card}]")
     return out
+
+
+def dcn_window_times(trained, device, peaks, card):
+    """The DCN kernels at each of a window's call shapes (the trained
+    inputs of L1, L2, L3; B 2 as the batch repeated), and their sum over a
+    window's 42 calls beside the window's bound: {piece: (ms, bound ms)}."""
+    import torch
+    from stif_tpu_torch.ops import dcn_backward, dcn_forward
+
+    total = {"forward": [0.0, 0.0], "backward": [0.0, 0.0]}
+    for (lvl, B), n in DCN_WINDOW_CALLS.items():
+        x, off, mask, w, b = trained[f"{lvl}_dcnpack_1"]
+        if B == 2:
+            x, off, mask = (torch.cat([v, v]) for v in (x, off, mask))
+        cot = torch.randn(*off.shape[:3], w.shape[0], device=device)
+        with torch.no_grad():
+            f_ms = cuda_ms(lambda: dcn_forward(x, off, mask, w, b), 20)
+            b_ms = cuda_ms(lambda: dcn_backward(cot, x, off, mask, w), 20)
+        bounds = dcn_bounds(x, off, w.shape[0], peaks)
+        for k, v in (("forward", f_ms), ("backward", b_ms)):
+            bound = max(bounds[k][:2])
+            total[k][0] += n * v
+            total[k][1] += n * bound
+        log(f"  {lvl} B {B} ({n} calls a window): forward {f_ms:.4f} ms "
+            f"(bound {max(bounds['forward'][:2]):.4f}), backward "
+            f"{b_ms:.4f} ms (bound {max(bounds['backward'][:2]):.4f}) "
+            f"[{card}]")
+    for k, (ms, bound) in total.items():
+        log(f"  a window's {sum(DCN_WINDOW_CALLS.values())} calls, {k}: "
+            f"{ms:.4f} ms against a bound of {bound:.4f} ms "
+            f"({100 * bound / ms:.0f} %) [{card}]")
+    return {k: tuple(v) for k, v in total.items()}
 
 
 def dcn_kernel_phase(device, peaks, card):
     """Phase 3b: the DCN kernels against their plain versions at the
-    encoder's shapes, then timed at the main path's largest call. Returns
-    {kernel: (max|d|, ms, plain ms, bound ms, bound by)}."""
+    encoder's shapes, then timed at the main path's largest call and at
+    each of a window's call shapes. Returns {kernel: (max|d|, ms, plain ms,
+    bound ms, bound by)}."""
     import torch
+    from stif_tpu_torch.ops.deform_conv import blocks_per_sm, launch_plan
 
     trained = first_alignment(device)
     errs = []
@@ -549,14 +598,21 @@ def dcn_kernel_phase(device, peaks, card):
                           shift_bound=2))
     x, off, _, _, _ = trained["L1_dcnpack_1"]
     Q, cin = off.shape[:3].numel(), x.shape[-1]
-    log(f"  timed at {l1}, trained offsets and weights: columns "
-        f"{Q} x {9 * cin} fp32, {4 * Q * 9 * cin / 1e6:.1f} MB written and "
-        f"read again; the addmm {2 * Q * 9 * cin * 64 / 1e9:.2f} GFLOP")
+    fwd = launch_plan("forward", Q, cin, 8, 64)
+    bwd = launch_plan("backward", Q, cin, 8, 64)
+    occ = blocks_per_sm(fwd)
+    log(f"  timed at {l1}, trained offsets and weights: the product "
+        f"{2 * Q * 9 * cin * 64 / 1e9:.2f} GFLOP (x3 TF32 passes), no "
+        f"column matrix; forward grid {fwd.grid}, {fwd.smem_bytes} B shared, "
+        f"{occ[0]} block(s) per SM; backward grid {bwd.grid} "
+        f"({bwd.tiles_per_block} tiles a block), {bwd.smem_bytes} B shared, "
+        f"{occ[1]} blocks per SM")
     times = dcn_times(trained["L1_dcnpack_1"], peaks, card)
+    dcn_window_times(trained, device, peaks, card)
     del trained
     torch.cuda.empty_cache()
-    return {"dcn_im2col": (max(e for e, _ in errs), *times["im2col"]),
-            "dcn_col2im": (max(e for _, e in errs), *times["col2im"])}
+    return {"dcn_forward": (max(e for e, _ in errs), *times["forward"]),
+            "dcn_backward": (max(e for _, e in errs), *times["backward"])}
 
 
 def device_profile(fn, wall_ms: float, what: str, card: str,
@@ -601,7 +657,7 @@ def main_path(card: str):
     from stif_tpu_torch.models import LunaTokis
     from stif_tpu_torch.nn.dcn import set_dcn_kernel
     from stif_tpu_torch.nn.siren import set_fused
-    from stif_tpu_torch.ops import dcn_col2im, dcn_im2col, siren_apply_fused
+    from stif_tpu_torch.ops import dcn_backward, dcn_forward, siren_apply_fused
     from stif_tpu_torch.runtime import InferencePipeline
 
     model = LunaTokis(rgb_skip=True, rgb_skip_bicubic=True)
@@ -614,7 +670,7 @@ def main_path(card: str):
     times = [i / N_TIMES for i in range(N_TIMES)]
 
     siren_apply_fused.launches = 0
-    dcn_im2col.launches = dcn_col2im.launches = 0
+    dcn_forward.launches = dcn_backward.launches = 0
     torch.cuda.reset_peak_memory_stats()
     out = pipe.render_window(frames, times)  # warm-up
     window_s = []
@@ -638,8 +694,8 @@ def main_path(card: str):
                              f"{n_windows} windows, expected {DCN_PER_PAIR} "
                              "forward launches per window")
     log(f"  window {out.shape}, finite, SIREN launches {launches} in "
-        f"{n_windows} windows (3 per window), DCN forward launches "
-        f"{dcn[0]} ({DCN_PER_PAIR} per window), no backward")
+        f"{n_windows} windows (3 per window), dcn_forward launches "
+        f"{dcn[0]} ({DCN_PER_PAIR} per window), no dcn_backward")
     win = float(np.mean(window_s))
     log(f"  render_window: {1e3 * win:.1f} ms/window "
         f"(runs {', '.join(f'{1e3 * s:.1f}' for s in window_s)} ms), "
@@ -671,9 +727,9 @@ def main_path(card: str):
     # the same window with the plain DCN on the card, then both timed in
     # turns and profiled
     set_dcn_kernel(model, False)
-    dcn_im2col.launches = 0
+    dcn_forward.launches = 0
     plain = pipe.render_window(frames, times)
-    if dcn_im2col.launches:
+    if dcn_forward.launches:
         raise AssertionError("the plain-DCN window launched a DCN kernel")
     err = float(np.abs(out - plain).max())
     log(f"  plain-DCN window: max|d| to the kernel window = {err:.3e}")
@@ -774,9 +830,9 @@ def slice_kernel_checks(device) -> float:
 
 
 def dcn_counts():
-    from stif_tpu_torch.ops import dcn_col2im, dcn_im2col
+    from stif_tpu_torch.ops import dcn_backward, dcn_forward
 
-    return dcn_im2col.launches, dcn_col2im.launches
+    return dcn_forward.launches, dcn_backward.launches
 
 
 class Launches:
@@ -791,11 +847,11 @@ class Launches:
         self.dcn = [0, 0]
 
     def run(self, what: str, expect: int, fn, dcn="some"):
-        from stif_tpu_torch.ops import (dcn_col2im, dcn_im2col,
+        from stif_tpu_torch.ops import (dcn_backward, dcn_forward,
                                         siren_apply_fused)
 
         siren_apply_fused.launches = 0
-        dcn_im2col.launches = dcn_col2im.launches = 0
+        dcn_forward.launches = dcn_backward.launches = 0
         out = fn()
         n = siren_apply_fused.launches
         if n != expect:
@@ -1495,10 +1551,12 @@ def train_phase(card: str, device) -> int:
     count.run("train steps", 0, lambda: train_speed(opt, card))
     n_steps = len(TRAIN_BUCKETS) * (WARM_STEPS + TIMED_STEPS) + 1
     fwd, bwd = count.last
-    log(f"  DCN launches in {n_steps} steps: {fwd} forward, {bwd} backward")
-    if bwd != DCN_PER_PAIR * n_steps:
-        raise AssertionError(f"{bwd} DCN backward launches in {n_steps} "
-                             f"train steps, expected {DCN_PER_PAIR} a step")
+    log(f"  DCN launches in {n_steps} steps: {fwd} dcn_forward, {bwd} "
+        "dcn_backward")
+    if (fwd, bwd) != (DCN_STEP_FORWARD * n_steps, DCN_PER_PAIR * n_steps):
+        raise AssertionError(f"DCN launches ({fwd}, {bwd}) in {n_steps} "
+                             f"train steps, expected {DCN_STEP_FORWARD} "
+                             f"forward and {DCN_PER_PAIR} backward a step")
     torch.cuda.empty_cache()
 
     log("[8b] ten steps on one fixed x4 batch, warmup off: the loss falls")
@@ -1537,9 +1595,10 @@ def train_phase(card: str, device) -> int:
         log(f"  {dev}: loss {logs[-1]['loss']:.6f}, grad norm "
             f"{logs[-1]['grad_norm']:.4f}, {time.perf_counter() - t0:.2f} s; "
             f"DCN launches (forward, backward) {count.last}")
-        if dev != "cpu" and count.last[1] != DCN_PER_PAIR:
-            raise AssertionError(f"{count.last[1]} DCN backward launches in "
-                                 f"one step, expected {DCN_PER_PAIR}")
+        if dev != "cpu" and count.last != (DCN_STEP_FORWARD, DCN_PER_PAIR):
+            raise AssertionError(f"DCN launches {count.last} in one step, "
+                                 f"expected ({DCN_STEP_FORWARD}, "
+                                 f"{DCN_PER_PAIR})")
         grads.append({n: p.grad.cpu() for n, p in m.net.named_parameters()
                       if p.grad is not None})
         del m
@@ -2044,8 +2103,8 @@ def main() -> int:
         "name": name,
         "route": "cuda",
         "source": "stif_tpu_torch/csrc/deform_conv.cu",
-        "replaces": replaces,  # XLA gathers: the JAX package has no Pallas
-        "launches": n,         # kernel for the DCN
+        "replaces": replaces,  # XLA gathers and an einsum: the JAX package
+        "launches": n,         # has no Pallas kernel for the DCN
         "max_abs_err": dcn[name][0],
         "ms": dcn[name][1],
         "plain_ms": dcn[name][2],
@@ -2053,8 +2112,10 @@ def main() -> int:
         "bound_by": dcn[name][4],
         "library_ms": None,  # no PyTorch call computes a deformable conv
     } for name, replaces, n in (
-        ("dcn_im2col", "stif_tpu/ops/deform_conv.py:236", dcn_launches[0]),
-        ("dcn_col2im", "stif_tpu/ops/deform_conv.py:161", dcn_launches[1]))]}
+        ("dcn_forward", "stif_tpu/ops/deform_conv.py:236-273",
+         dcn_launches[0]),
+        ("dcn_backward", "stif_tpu/ops/deform_conv.py:161",
+         dcn_launches[1]))]}
     log(f"[6] done in {time.perf_counter() - t_start:.1f} s; SIREN kernel "
         "times are the sum of the deployed model's three nets of one window, "
         "DCN kernel times those of one L1 call (96x160, B 1); launches the "

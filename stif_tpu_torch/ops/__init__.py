@@ -2,9 +2,11 @@
 
 from stif_tpu_torch.ops.coords import make_coord, make_coord_demo
 from stif_tpu_torch.ops.deform_conv import (
-    dcn_col2im,
+    dcn_backward,
+    dcn_backward_plain,
     dcn_col2im_plain,
-    dcn_im2col,
+    dcn_forward,
+    dcn_forward_plain,
     dcn_im2col_plain,
     dcn_shift_stats,
     deform_conv2d,
@@ -24,9 +26,11 @@ from stif_tpu_torch.ops.warp import backward_warp, warp_grid, warp_grid_coords
 
 __all__ = [
     "backward_warp",
-    "dcn_col2im",
+    "dcn_backward",
+    "dcn_backward_plain",
     "dcn_col2im_plain",
-    "dcn_im2col",
+    "dcn_forward",
+    "dcn_forward_plain",
     "dcn_im2col_plain",
     "dcn_shift_stats",
     "deform_conv2d",

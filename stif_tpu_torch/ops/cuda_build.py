@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C entry point. It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under ``stif_tpu_torch/_build``
-(listed in ``.gitignore``) at first use, named by a hash of its source so an
-edited kernel is rebuilt, and loaded with ``ctypes``. A ``csrc/<name>.cpp``
+(listed in ``.gitignore``) at first use, named by a hash of its source and
+of the headers beside it (``csrc/*.cuh``) so an edited kernel or header is
+rebuilt, and loaded with ``ctypes``. A ``csrc/<name>.cpp``
 (host code, a plain C ABI) is built the same way with ``g++``
 (``load_host``); its threads are ``std::thread``s, so it needs no OpenMP
 runtime. Nothing is built when a module is imported.
@@ -39,9 +40,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
+    """Where kernel ``name`` is built: named by a hash of its source, of
+    every header in ``csrc`` (``*.cuh``, which a source may include) and of
+    the flags, so that an edit to any of them builds it anew."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:

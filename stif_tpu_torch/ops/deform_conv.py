@@ -6,18 +6,23 @@ channels, bilinear sampling with zero padding per corner (a corner outside
 the image contributes 0), a sigmoid mask, then one dense contraction with
 the conv weight over (K taps x Cin).
 
-The op is one ``torch.autograd.Function``. Its forward builds the column
-matrix (B*Ho*Wo, K*Cin), k-major then Cin, and contracts it with the weight
-in one ``torch.addmm``; its backward takes the grad-columns by a matmul,
-turns them into the gradients of x, offset and mask, and takes the weight's
-gradient against the columns built again (not saved: 35 MB at the encoder's
-largest call). On a CUDA tensor the columns and the backward come from the
-hand-written Hopper kernels of ``csrc/deform_conv.cu``, ``dcn_im2col`` and
-``dcn_col2im`` (grad x by fp32 atomics, grad offset and mask fused in), or
-the wrapper raises; on a CPU tensor from their plain versions here,
-``dcn_im2col_plain`` and ``dcn_col2im_plain``. Nothing falls back from a
-kernel. The JAX package writes this op in XLA gathers with a custom VJP for
-the gather's transpose; it has no Pallas kernel for it.
+The op is one ``torch.autograd.Function``. On a CUDA tensor its forward is
+one launch of the hand-written Hopper kernel ``dcn_forward``
+(``csrc/deform_conv.cu``): it samples each tap's slab of the column matrix
+into shared memory and contracts it with the weight on the tensor cores
+(3xTF32), so the column matrix (B*Ho*Wo, K*Cin), 35 MB at the encoder's
+largest call, is never written. Its backward is ``dcn_backward``: per tap the
+grad-columns (grad_out x W^T) in shared memory, grad x by fp32 atomics,
+grad offset and mask from the same corner reads, and the weight's gradient
+from the re-sampled slab, summed over pixel tiles in a fixed order. On a CPU
+tensor the same functions are the plain versions here,
+``dcn_forward_plain`` and ``dcn_backward_plain`` (built from
+``dcn_im2col_plain``, ``dcn_col2im_plain`` and matrix products). Nothing
+falls back from a kernel: on a CUDA tensor the op launches or raises.
+``launch_plan`` works out each kernel's tiles, grid, channel padding and
+shared memory; the C entries check it again. The JAX package writes this op
+in XLA gathers with a custom VJP for the gather's transpose; it has no
+Pallas kernel for it.
 
 ``impl`` follows the JAX package's switch (``set_dcn_impl`` for
 ``impl="auto"`` call sites):
@@ -42,6 +47,7 @@ column weights to it; here only x is rounded.)
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
 import torch
@@ -57,7 +63,7 @@ _DEFAULT_IMPL = "patch"
 _DEFAULT_SHIFT_BOUND = None  # None: each call site's shift_bound
 _DEFAULT_WINDOW = (8, 8)     # kept for the JAX package's API; no effect here
 IMPLS = ("patch", "dense", "window")
-_META = 28  # longs the C entries read (csrc/deform_conv.cu)
+_META = 29  # longs the C entries read (csrc/deform_conv.cu)
 
 
 def _pair(v: IntPair) -> Tuple[int, int]:
@@ -144,10 +150,10 @@ class _Geometry:
     def Q(self):
         return self.Ho * self.Wo
 
-    def meta(self, offset, mask):
+    def meta(self, offset, mask, cout):
         m = [self.B, self.H, self.W, self.Cin, self.G, self.Ho, self.Wo,
              self.kh, self.kw, self.sh, self.sw, self.ph, self.pw, self.dh,
-             self.dw, -1 if self.S is None else int(self.S)]
+             self.dw, -1 if self.S is None else int(self.S), cout]
         m += list(offset.stride()) + list(mask.stride()) + [_META]
         return (ctypes.c_longlong * _META)(*m)
 
@@ -261,19 +267,175 @@ def dcn_col2im_plain(grad_cols, x, offset, mask, kernel_size: IntPair = 3,
             g_mask.reshape(B, geo.Ho, geo.Wo, G, K))
 
 
+def _weight_rows(weight):
+    """OIHW (Cout, Cin, kh, kw) as the (K*Cin, Cout) matrix of the columns'
+    layout."""
+    Cout, Cin, kh, kw = weight.shape
+    return weight.permute(2, 3, 1, 0).reshape(kh * kw * Cin, Cout)
+
+
+def dcn_forward_plain(x, offset, mask, weight, bias=None,
+                      stride: IntPair = 1, padding: IntPair = 1,
+                      dilation: IntPair = 1,
+                      shift_bound: Optional[int] = None) -> torch.Tensor:
+    """The op's forward in plain PyTorch: the columns
+    (``dcn_im2col_plain``) times the weight by one ``addmm``. x: (B, H, W,
+    Cin); offset (B, Ho, Wo, G, K, 2); mask (B, Ho, Wo, G, K); weight OIHW
+    (Cout, Cin, kh, kw); bias (Cout,) or None. Returns (B, Ho, Wo, Cout)."""
+    Cout, _, kh, kw = weight.shape
+    cols = dcn_im2col_plain(x, offset, mask, (kh, kw), stride, padding,
+                            dilation, shift_bound)
+    wr = _weight_rows(weight)
+    out = cols @ wr if bias is None else torch.addmm(bias, cols, wr)
+    return out.reshape(*offset.shape[:3], Cout)
+
+
+def dcn_backward_plain(grad_out, x, offset, mask, weight,
+                       stride: IntPair = 1, padding: IntPair = 1,
+                       dilation: IntPair = 1,
+                       shift_bound: Optional[int] = None):
+    """The op's backward in plain PyTorch from grad_out (B, Ho, Wo, Cout):
+    (grad x, grad offset, grad mask, grad weight OIHW) by the grad-columns
+    (``grad_out @ W^T``), ``dcn_col2im_plain`` and the columns built again
+    for the weight's gradient. The bias's gradient is ``grad_out``'s sum."""
+    Cout, Cin, kh, kw = weight.shape
+    g = grad_out.reshape(-1, Cout)
+    wr = _weight_rows(weight)
+    gx, goff, gmask = dcn_col2im_plain(g @ wr.t(), x, offset, mask, (kh, kw),
+                                       stride, padding, dilation, shift_bound)
+    cols = dcn_im2col_plain(x, offset, mask, (kh, kw), stride, padding,
+                            dilation, shift_bound)
+    gw = (cols.t() @ g).reshape(kh, kw, Cin, Cout).permute(3, 2, 0, 1)
+    return gx, goff, gmask, gw
+
+
 # ------------------------------------------------------------------ kernels
+
+# the kernels' geometry (csrc/deform_conv.cu)
+FORWARD_ROWS, FORWARD_THREADS = 128, 512  # output pixels per tile, threads
+SMS = 132          # streaming multiprocessors of an H100 SXM
+BACKWARD_ROWS, BACKWARD_THREADS = 64, 256
+TILE_N = 64        # output channels per tile
+MAX_CHUNK = 64     # input channels per chunk
+MAX_RUN = 576      # weights per output channel of a chunk (64 x 3 x 3)
+MAX_TAPS = 72
+_LD_A, _LD_WB, _LD_G, _LD_S = 68, 68, 72, 72  # shared row pitches (floats)
+BACKWARD_SMEM = 16 + 4 * (MAX_CHUNK * _LD_WB + BACKWARD_ROWS * _LD_G
+                          + BACKWARD_ROWS * _LD_A + BACKWARD_ROWS * _LD_S)
+TARGET_BLOCKS = 3 * SMS  # backward: about three blocks per SM
+
+
+def _round8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+@dataclass(frozen=True)
+class DcnPlan:
+    """Launch geometry of ``dcn_forward`` or ``dcn_backward`` for one call.
+
+    A tile is ``tile_rows`` output pixels; input channels go in chunks of
+    ``chunk`` (whole groups, at most 64 channels and 576 weights per output
+    channel), padded with zeros to ``chunk_pad`` (the tensor cores' 8) in
+    shared memory; output channels in ``n_col_tiles`` tiles of 64. The
+    forward's grid is (pixel tiles, column tiles), its weight tile
+    ``weight_pitch`` floats per output channel (the padded chunk's taps).
+    The backward's grid is (parts, taps x chunks x column tiles), each block
+    walking ``tiles_per_block`` pixel tiles and writing one partial of the
+    weight's gradient, summed by a second launch when there are several;
+    ``accumulate``: grad offset and mask by atomics (several column tiles,
+    or a group wider than a chunk)."""
+
+    kind: str
+    tile_rows: int
+    threads: int
+    chunk: int
+    chunk_pad: int
+    n_chunks: int
+    n_col_tiles: int
+    smem_bytes: int
+    grid: Tuple[int, int]
+    weight_pitch: int = 0
+    tiles_per_block: int = 0
+    accumulate: bool = False
+
+    def flat(self):
+        """The plan as the C entries read it (see ``csrc/deform_conv.cu``)."""
+        out = [self.tile_rows, self.threads, self.chunk, self.chunk_pad,
+               self.n_chunks, self.n_col_tiles, self.smem_bytes, *self.grid]
+        if self.kind == "forward":
+            return out + [self.weight_pitch]
+        return out + [self.tiles_per_block, int(self.accumulate)]
+
+
+def launch_plan(kind: str, pixels: int, cin: int, groups: int, cout: int,
+                taps: int = 9) -> DcnPlan:
+    """The launch plan of the ``"forward"`` or ``"backward"`` kernel for
+    ``pixels`` output pixels (B*Ho*Wo), ``cin`` input channels in
+    ``groups`` deformable groups, ``cout`` output channels and ``taps``
+    kernel taps (kh*kw, at most 72). Raises ``ValueError`` for a call the
+    kernels do not take."""
+    if kind not in ("forward", "backward"):
+        raise ValueError(f"launch_plan: kind {kind!r}")
+    if (min(cin, groups, cout, taps) < 1 or pixels < 0 or cin % groups
+            or taps > MAX_TAPS):
+        raise ValueError(f"dcn_{kind}: {pixels} pixels, Cin {cin}, {groups} "
+                         f"groups, Cout {cout}, {taps} taps (at most "
+                         f"{MAX_TAPS})")
+    cpg = cin // groups
+    most = MAX_RUN // taps
+    most = min(MAX_CHUNK, most // 8 * 8) if most >= 8 else most
+    chunk = min(cin, cpg * (most // cpg) if cpg <= most else most)
+    n_chunks = -(-cin // chunk)
+    n_col = -(-cout // TILE_N)
+    if taps * n_chunks * n_col > 65535:
+        raise ValueError(f"dcn_{kind}: {taps * n_chunks * n_col} blocks per "
+                         "pixel tile")
+    head = dict(kind=kind, chunk=chunk, chunk_pad=_round8(chunk),
+                n_chunks=n_chunks, n_col_tiles=n_col)
+    if kind == "forward":
+        pitch = _round8(chunk) * taps
+        pitch += (36 - pitch % 32) % 32  # 4 mod 32: no bank conflicts
+        # one block per SM (the weight tile fills shared memory): a call
+        # whose 64-pixel tiles fit in one wave takes those, shorter blocks
+        rows = 64 if -(-pixels // 64) * n_col <= SMS else FORWARD_ROWS
+        return DcnPlan(**head, tile_rows=rows, threads=FORWARD_THREADS,
+                       smem_bytes=16 + 4 * (TILE_N * pitch + 2 * rows * _LD_A)
+                       + 32 * rows,
+                       grid=(-(-pixels // rows), n_col), weight_pitch=pitch)
+    n_tiles = -(-pixels // BACKWARD_ROWS)
+    per_tile = taps * n_chunks * n_col
+    tpb = max(1, -(-n_tiles * per_tile // TARGET_BLOCKS))
+    return DcnPlan(**head, tile_rows=BACKWARD_ROWS, threads=BACKWARD_THREADS,
+                   smem_bytes=BACKWARD_SMEM,
+                   grid=(max(1, -(-n_tiles // tpb)), per_tile),
+                   tiles_per_block=tpb,
+                   accumulate=n_col > 1 or cpg > chunk)
+
 
 def _library():
     lib = cuda_build.load("deform_conv")
-    if lib.dcn_im2col_forward.argtypes is None:
-        vp, meta = ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)
-        lib.dcn_im2col_forward.argtypes = [vp, vp, vp, vp, meta,
-                                           ctypes.c_int, vp]
-        lib.dcn_col2im_backward.argtypes = [vp, vp, vp, vp, vp, vp, vp, meta,
-                                            ctypes.c_int, vp]
-        lib.dcn_im2col_forward.restype = ctypes.c_int
-        lib.dcn_col2im_backward.restype = ctypes.c_int
+    if lib.dcn_forward.argtypes is None:
+        vp, ip = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)
+        meta = ctypes.POINTER(ctypes.c_longlong)
+        lib.dcn_forward.argtypes = [vp] * 6 + [meta, ctypes.c_int, ip,
+                                               ctypes.c_int, vp]
+        lib.dcn_backward.argtypes = [vp] * 10 + [meta, ctypes.c_int, ip,
+                                                 ctypes.c_int, vp]
+        lib.dcn_blocks_per_sm.argtypes = [ctypes.c_int, ip]
+        for fn in (lib.dcn_forward, lib.dcn_backward, lib.dcn_blocks_per_sm):
+            fn.restype = ctypes.c_int
     return lib
+
+
+def blocks_per_sm(forward: DcnPlan) -> Tuple[int, int]:
+    """Blocks of the forward kernel (under the plan ``forward``) and of the
+    backward kernel that one SM holds (the CUDA occupancy calculator's
+    answer; builds the kernels if needed)."""
+    out = (ctypes.c_int * 2)()
+    err = _library().dcn_blocks_per_sm(forward.smem_bytes, out)
+    if err != 0:
+        raise RuntimeError(f"dcn occupancy query: CUDA error {err}")
+    return out[0], out[1]
 
 
 def _check_card(what: str, tensors, contiguous) -> torch.device:
@@ -289,9 +451,26 @@ def _check_card(what: str, tensors, contiguous) -> torch.device:
             raise ValueError(f"{what}: negative strides {tuple(t.stride())}")
     for t in contiguous:
         if not t.is_contiguous():
-            raise ValueError(f"{what}: x and the columns must be "
-                             f"contiguous, got strides {tuple(t.stride())}")
+            raise ValueError(f"{what}: x, grad_out, the weight and the bias "
+                             "must be contiguous, got strides "
+                             f"{tuple(t.stride())}")
     return dev
+
+
+def _card_geometry(what, x, offset, mask, weight, stride, padding, dilation,
+                   shift_bound) -> _Geometry:
+    geo = _Geometry(x, offset, weight.shape[2:], stride, padding, dilation,
+                    shift_bound)
+    if tuple(mask.shape) != tuple(offset.shape[:5]):
+        raise ValueError(f"{what}: mask shape {tuple(mask.shape)}, expected "
+                         f"{tuple(offset.shape[:5])}")
+    if weight.dim() != 4 or weight.shape[1] != geo.Cin:
+        raise ValueError(f"{what}: weight shape {tuple(weight.shape)} for "
+                         f"{geo.Cin} input channels")
+    if geo.H * geo.W * geo.Cin >= 2**31:  # the kernels' 32-bit offsets
+        raise ValueError(f"{what}: an image of {geo.H}x{geo.W}x{geo.Cin} "
+                         "elements; the kernels take fewer than 2**31")
+    return geo
 
 
 def _launch(what: str, fn, dev, args) -> None:
@@ -302,120 +481,122 @@ def _launch(what: str, fn, dev, args) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def dcn_im2col(x, offset, mask, kernel_size: IntPair = 3,
-               stride: IntPair = 1, padding: IntPair = 1,
-               dilation: IntPair = 1,
-               shift_bound: Optional[int] = None) -> torch.Tensor:
-    """The column matrix of ``dcn_im2col_plain``. On CUDA tensors it
-    launches the kernel (x contiguous, offset and mask read in place at
-    any strides) or raises; on CPU tensors it is the plain version."""
+def _flat(plan: DcnPlan):
+    flat = plan.flat()
+    return (ctypes.c_int * len(flat))(*flat), len(flat)
+
+
+def dcn_forward(x, offset, mask, weight, bias=None, stride: IntPair = 1,
+                padding: IntPair = 1, dilation: IntPair = 1,
+                shift_bound: Optional[int] = None) -> torch.Tensor:
+    """The op's forward, ``dcn_forward_plain``'s result. On CUDA tensors it
+    launches the fused sample-and-contract kernel (x, the OIHW weight and
+    the bias contiguous, offset and mask read in place at any strides; no
+    column matrix is written) or raises; on CPU tensors it is the plain
+    version."""
     if x.device.type == "cpu":
-        return dcn_im2col_plain(x, offset, mask, kernel_size, stride,
-                                padding, dilation, shift_bound)
+        return dcn_forward_plain(x, offset, mask, weight, bias, stride,
+                                 padding, dilation, shift_bound)
     if x.device.type != "cuda":
-        raise ValueError(f"dcn_im2col: unsupported device {x.device}")
-    dev = _check_card("dcn_im2col", (x, offset, mask), (x,))
-    geo = _Geometry(x, offset, kernel_size, stride, padding, dilation,
-                    shift_bound)
-    if tuple(mask.shape) != tuple(offset.shape[:5]):
-        raise ValueError(f"dcn_im2col: mask shape {tuple(mask.shape)}")
-    cols = torch.empty(geo.B * geo.Q, geo.K * geo.Cin, device=dev,
-                       dtype=torch.float32)
-    _launch("dcn_im2col", _library().dcn_im2col_forward, dev,
+        raise ValueError(f"dcn_forward: unsupported device {x.device}")
+    extra = [] if bias is None else [bias]
+    dev = _check_card("dcn_forward", [x, offset, mask, weight] + extra,
+                      [x, weight] + extra)
+    geo = _card_geometry("dcn_forward", x, offset, mask, weight, stride,
+                         padding, dilation, shift_bound)
+    Cout = weight.shape[0]
+    if bias is not None and tuple(bias.shape) != (Cout,):
+        raise ValueError(f"dcn_forward: bias shape {tuple(bias.shape)}")
+    plan = launch_plan("forward", geo.B * geo.Q, geo.Cin, geo.G, Cout,
+                       geo.K)
+    out = torch.empty(geo.B, geo.Ho, geo.Wo, Cout, device=dev,
+                      dtype=torch.float32)
+    _launch("dcn_forward", _library().dcn_forward, dev,
             (x.data_ptr(), offset.data_ptr(), mask.data_ptr(),
-             cols.data_ptr(), geo.meta(offset, mask), _META))
-    dcn_im2col.launches += 1
-    return cols
+             weight.data_ptr(),
+             None if bias is None else bias.data_ptr(), out.data_ptr(),
+             geo.meta(offset, mask, Cout), _META, *_flat(plan)))
+    dcn_forward.launches += 1
+    return out
 
 
-dcn_im2col.launches = 0
+dcn_forward.launches = 0
 
 
-def dcn_col2im(grad_cols, x, offset, mask, kernel_size: IntPair = 3,
-               stride: IntPair = 1, padding: IntPair = 1,
-               dilation: IntPair = 1, shift_bound: Optional[int] = None):
-    """(grad x, grad offset, grad mask) of ``dcn_col2im_plain``. On CUDA
-    tensors it launches the kernel (grad x summed by fp32 atomics, in any
-    order) or raises; on CPU tensors it is the plain version."""
+def dcn_backward(grad_out, x, offset, mask, weight, stride: IntPair = 1,
+                 padding: IntPair = 1, dilation: IntPair = 1,
+                 shift_bound: Optional[int] = None):
+    """(grad x, grad offset, grad mask, grad weight OIHW) of
+    ``dcn_backward_plain``. On CUDA tensors it launches the fused backward
+    kernel (grad x summed by fp32 atomics, in any order; the weight's
+    gradient summed from per-block partials in a fixed order, a second
+    launch when there are several) or raises; on CPU tensors it is the
+    plain version."""
     if x.device.type == "cpu":
-        return dcn_col2im_plain(grad_cols, x, offset, mask, kernel_size,
-                                stride, padding, dilation, shift_bound)
+        return dcn_backward_plain(grad_out, x, offset, mask, weight, stride,
+                                  padding, dilation, shift_bound)
     if x.device.type != "cuda":
-        raise ValueError(f"dcn_col2im: unsupported device {x.device}")
-    dev = _check_card("dcn_col2im", (grad_cols, x, offset, mask),
-                      (grad_cols, x))
-    geo = _Geometry(x, offset, kernel_size, stride, padding, dilation,
-                    shift_bound)
-    if tuple(mask.shape) != tuple(offset.shape[:5]) or tuple(
-            grad_cols.shape) != (geo.B * geo.Q, geo.K * geo.Cin):
-        raise ValueError("dcn_col2im: mask or grad-columns shape "
-                         f"{tuple(mask.shape)}, {tuple(grad_cols.shape)}")
+        raise ValueError(f"dcn_backward: unsupported device {x.device}")
+    dev = _check_card("dcn_backward", (grad_out, x, offset, mask, weight),
+                      (grad_out, x, weight))
+    geo = _card_geometry("dcn_backward", x, offset, mask, weight, stride,
+                         padding, dilation, shift_bound)
+    Cout, Cin = weight.shape[:2]
+    if tuple(grad_out.shape) != (geo.B, geo.Ho, geo.Wo, Cout):
+        raise ValueError(f"dcn_backward: grad_out shape "
+                         f"{tuple(grad_out.shape)}")
+    plan = launch_plan("backward", geo.B * geo.Q, Cin, geo.G, Cout, geo.K)
+    f32 = dict(device=dev, dtype=torch.float32)
     gx = torch.zeros_like(x)
-    goff = torch.empty(offset.shape, device=dev, dtype=torch.float32)
-    gmask = torch.empty(mask.shape, device=dev, dtype=torch.float32)
-    _launch("dcn_col2im", _library().dcn_col2im_backward, dev,
-            (grad_cols.data_ptr(), x.data_ptr(), offset.data_ptr(),
-             mask.data_ptr(), gx.data_ptr(), goff.data_ptr(),
-             gmask.data_ptr(), geo.meta(offset, mask), _META))
-    dcn_col2im.launches += 1
-    return gx, goff, gmask
+    new = torch.zeros if plan.accumulate else torch.empty
+    goff, gmask = new(offset.shape, **f32), new(mask.shape, **f32)
+    gw = (torch.empty if geo.B * geo.Q else torch.zeros)(weight.shape, **f32)
+    parts = plan.grid[0]
+    ws = gw if parts == 1 else torch.empty(parts, *weight.shape, **f32)
+    _launch("dcn_backward", _library().dcn_backward, dev,
+            (grad_out.data_ptr(), x.data_ptr(), offset.data_ptr(),
+             mask.data_ptr(), weight.data_ptr(), gx.data_ptr(),
+             goff.data_ptr(),
+             gmask.data_ptr(), ws.data_ptr(), gw.data_ptr(),
+             geo.meta(offset, mask, Cout), _META, *_flat(plan)))
+    dcn_backward.launches += 1
+    return gx, goff, gmask, gw
 
 
-dcn_col2im.launches = 0
+dcn_backward.launches = 0
 
 
 # -------------------------------------------------------------------- the op
 
-def _weight_rows(weight):
-    """OIHW (Cout, Cin, kh, kw) as the (K*Cin, Cout) matrix of the columns'
-    layout."""
-    Cout, Cin, kh, kw = weight.shape
-    return weight.permute(2, 3, 1, 0).reshape(kh * kw * Cin, Cout)
-
-
 class DeformConv2dFunction(torch.autograd.Function):
-    """Modulated deformable conv: columns (``dcn_im2col``) then one
-    ``addmm``; the backward by ``dcn_col2im``, two matmuls and the columns
-    built again. ``geom``: (stride, padding, dilation, shift_bound)."""
+    """Modulated deformable conv: ``dcn_forward``, and ``dcn_backward`` for
+    every gradient but the bias's (``grad_out``'s sum). ``geom``: (stride,
+    padding, dilation, shift_bound)."""
 
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, geom):
         stride, padding, dilation, S = geom
-        Cout, _, kh, kw = weight.shape
-        if x.device.type == "cuda":  # dcn_im2col checks offset and mask
-            _check_card("deform_conv2d",
-                        [x, weight] + ([] if bias is None else [bias]), ())
         x = x.contiguous()
-        cols = dcn_im2col(x, offset, mask, (kh, kw), stride, padding,
+        out = dcn_forward(x, offset, mask, weight, bias, stride, padding,
                           dilation, S)
-        wr = _weight_rows(weight)
-        out = cols @ wr if bias is None else torch.addmm(bias, cols, wr)
         ctx.save_for_backward(x, offset, mask, weight)
         ctx.geom, ctx.has_bias = geom, bias is not None
-        B, Ho, Wo = offset.shape[:3]
-        return out.reshape(B, Ho, Wo, Cout)
+        return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
         x, offset, mask, weight = ctx.saved_tensors
         stride, padding, dilation, S = ctx.geom
-        Cout, _, kh, kw = weight.shape
-        g = grad_out.reshape(-1, Cout)
-        wr = _weight_rows(weight)
         need = ctx.needs_input_grad
-        gx = goff = gmask = gw = gb = None
-        if any(need[:3]):
-            gx, goff, gmask = dcn_col2im(g @ wr.t(), x, offset, mask,
-                                         (kh, kw), stride, padding, dilation,
-                                         S)
-        if need[3]:
-            cols = dcn_im2col(x, offset, mask, (kh, kw), stride, padding,
-                              dilation, S)
-            gw = (cols.t() @ g).reshape(kh, kw, -1, Cout).permute(3, 2, 0, 1)
+        grads = [None] * 6
+        if any(need[:4]):
+            got = dcn_backward(grad_out.contiguous(), x, offset, mask, weight,
+                               stride, padding, dilation, S)
+            grads[:4] = [g if n else None for g, n in zip(got, need)]
         if ctx.has_bias and need[4]:
-            gb = g.sum(0)
-        return gx, goff, gmask, gw, gb, None
+            grads[4] = grad_out.reshape(-1, weight.shape[0]).sum(0)
+        return tuple(grads)
 
 
 def resolve_impl(impl: str, shift_bound: int, stride: IntPair, in_hw,
@@ -473,9 +654,5 @@ def deform_conv2d_plain(x: torch.Tensor, offset: torch.Tensor,
     (``DCNSep.use_kernel = False``)."""
     S = resolve_impl(impl, shift_bound, stride, x.shape[1:3],
                      offset.shape[1:3])
-    Cout, _, kh, kw = weight.shape
-    cols = dcn_im2col_plain(round_to(x, gather_dtype), offset, mask,
-                            (kh, kw), stride, padding, dilation, S)
-    wr = _weight_rows(weight)
-    out = cols @ wr if bias is None else torch.addmm(bias, cols, wr)
-    return out.reshape(*offset.shape[:3], Cout)
+    return dcn_forward_plain(round_to(x, gather_dtype), offset, mask, weight,
+                             bias, stride, padding, dilation, S)

@@ -576,37 +576,68 @@ def _dcn_inputs(device, B, H, W, Cin, G, stride=1, dilation=1, scale=6.0,
 ])
 def test_dcn_kernels_match_plain(cuda, B, H, W, Cin, G, stride, dilation, S,
                                  strided):
-    """``dcn_im2col`` and ``dcn_col2im`` against their plain versions at
-    ragged sizes, strided offset views and a shift bound: columns within
-    1e-4, gradients within 1e-4 x max|g| (atomics sum in any order)."""
-    from stif_tpu_torch.ops import (dcn_col2im, dcn_col2im_plain, dcn_im2col,
-                                    dcn_im2col_plain)
+    """``dcn_forward`` and ``dcn_backward`` against their plain versions at
+    ragged sizes, strided offset views and a shift bound: the forward within
+    1e-4, the gradients of x, offset, mask and weight within 1e-4 x max|g|
+    (3xTF32 products; grad x by atomics, summed in any order)."""
+    from stif_tpu_torch.ops import (dcn_backward, dcn_backward_plain,
+                                    dcn_forward, dcn_forward_plain)
 
     x, off, mask = _dcn_inputs(cuda, B, H, W, Cin, G, stride, dilation,
                                strided=strided)
     assert off.is_contiguous() != strided
-    geo = (3, stride, 1, dilation, S)
-    before = dcn_im2col.launches, dcn_col2im.launches
-    cols = dcn_im2col(x, off, mask, *geo)
-    want = dcn_im2col_plain(x, off, mask, *geo)
-    assert (cols - want).abs().max().item() <= 1e-4
-    gcols = torch.randn_like(cols)
-    got = dcn_col2im(gcols, x, off, mask, *geo)
+    g = torch.Generator().manual_seed(1)
+    w = (torch.randn(Cin, Cin, 3, 3, generator=g) / (3 * Cin ** 0.5)).to(cuda)
+    b = torch.randn(Cin, generator=g).to(cuda)
+    geo = (stride, 1, dilation, S)
+    before = dcn_forward.launches, dcn_backward.launches
+    out = dcn_forward(x, off, mask, w, b, *geo)
+    want = dcn_forward_plain(x, off, mask, w, b, *geo)
+    assert (out - want).abs().max().item() <= 1e-4
+    cot = torch.randn_like(out)
+    got = dcn_backward(cot, x, off, mask, w, *geo)
     torch.cuda.synchronize()
-    assert (dcn_im2col.launches, dcn_col2im.launches) == (
+    assert (dcn_forward.launches, dcn_backward.launches) == (
         before[0] + 1, before[1] + 1)
-    for g, w in zip(got, dcn_col2im_plain(gcols, x, off, mask, *geo)):
-        assert g.shape == w.shape
-        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+    for g, w_ in zip(got, dcn_backward_plain(cot, x, off, mask, w, *geo)):
+        assert g.shape == w_.shape
+        assert (g - w_).abs().max().item() <= 1e-4 * w_.abs().max().item()
+
+
+@pytest.mark.parametrize("Cin,G,Cout,k", [
+    (16, 4, 80, 3),    # two column tiles: grad offset and mask by atomics
+    (96, 1, 8, 3),     # a group wider than a chunk
+    (12, 4, 3, 3),     # CpG 3, Cout 3: 4-byte copies, the scalar path
+    (16, 2, 12, 5),    # a 5x5 kernel
+])
+def test_dcn_kernels_take_any_channels(cuda, Cin, G, Cout, k):
+    """The padded and chunked shapes: the kernels against their plain
+    versions (bars of ``test_dcn_kernels_match_plain``)."""
+    from stif_tpu_torch.ops import (dcn_backward, dcn_backward_plain,
+                                    dcn_forward, dcn_forward_plain)
+
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 11, 13, Cin, generator=g).to(cuda)
+    off = ((torch.rand(2, 11, 13, G, k * k, 2, generator=g) * 2 - 1)
+           * 4).to(cuda)
+    mask = torch.rand(2, 11, 13, G, k * k, generator=g).to(cuda)
+    w = (torch.randn(Cout, Cin, k, k, generator=g) / (k * Cin ** 0.5)).to(cuda)
+    geo = (1, k // 2, 1, None)
+    out = dcn_forward(x, off, mask, w, None, *geo)
+    want = dcn_forward_plain(x, off, mask, w, None, *geo)
+    assert (out - want).abs().max().item() <= 1e-4
+    cot = torch.randn_like(out)
+    got = dcn_backward(cot, x, off, mask, w, *geo)
+    for g_, w_ in zip(got, dcn_backward_plain(cot, x, off, mask, w, *geo)):
+        assert (g_ - w_).abs().max().item() <= 1e-4 * w_.abs().max().item()
 
 
 @pytest.mark.parametrize("bias", [True, False])
 def test_deform_conv2d_on_the_card_matches_autograd_of_plain(cuda, bias):
-    """The Function on the card (forward and backward kernels, one
-    ``addmm``) against autograd through the plain forward on the card, with
-    and without a bias; the launches it makes: one forward, then one of each
-    in the backward."""
-    from stif_tpu_torch.ops import (dcn_col2im, dcn_im2col, deform_conv2d,
+    """The Function on the card (``dcn_forward``, then ``dcn_backward``)
+    against autograd through the plain forward on the card, with and without
+    a bias; the launches it makes: one forward, then one backward."""
+    from stif_tpu_torch.ops import (dcn_backward, dcn_forward, deform_conv2d,
                                     deform_conv2d_plain)
 
     x, off, mask = _dcn_inputs(cuda, 2, 24, 40, 64, 8, strided=True)
@@ -619,17 +650,17 @@ def test_deform_conv2d_on_the_card_matches_autograd_of_plain(cuda, bias):
         ins = [v.detach().clone().requires_grad_(True) for v in (x, off, mask,
                                                                  w)]
         bb = None if b is None else b.clone().requires_grad_(True)
-        before = dcn_im2col.launches, dcn_col2im.launches
+        before = dcn_forward.launches, dcn_backward.launches
         y = op(*ins, bb, impl="patch")
-        n_fwd = dcn_im2col.launches - before[0]
+        n_fwd = dcn_forward.launches - before[0]
         (y * cot).sum().backward()
         torch.cuda.synchronize()
         if op is deform_conv2d:
             assert n_fwd == 1
-            assert (dcn_im2col.launches, dcn_col2im.launches) == (
-                before[0] + 2, before[1] + 1)
+            assert (dcn_forward.launches, dcn_backward.launches) == (
+                before[0] + 1, before[1] + 1)
         else:
-            assert (dcn_im2col.launches, dcn_col2im.launches) == before
+            assert (dcn_forward.launches, dcn_backward.launches) == before
         grads.append([y.detach()] + [v.grad for v in ins]
                      + ([] if bb is None else [bb.grad]))
     for got, want in zip(*grads):
@@ -637,14 +668,38 @@ def test_deform_conv2d_on_the_card_matches_autograd_of_plain(cuda, bias):
             1.0, want.abs().max().item())
 
 
+def test_dcn_forward_profile_is_one_kernel(cuda):
+    """One ``deform_conv2d`` forward at L1 (96x160, nf 64, 8 groups) runs one
+    kernel on the card, ``dcn_forward``: no cuBLAS GEMM, no column matrix,
+    no copy of the weight."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stif_tpu_torch.ops import deform_conv2d
+
+    x, off, mask = _dcn_inputs(cuda, 1, 96, 160, 64, 8, strided=True)
+    w = torch.randn(64, 64, 3, 3, device=cuda) * 0.05
+    b = torch.randn(64, device=cuda)
+    with torch.no_grad():
+        deform_conv2d(x, off, mask, w, b)  # builds and loads the kernels
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            deform_conv2d(x, off, mask, w, b)
+            torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all("dcn_forward" in n for n in names), names
+    assert not any("gemm" in n.lower() for n in names), names
+
+
 def test_dcn_kernels_refuse_bad_inputs(cuda):
     """On the card the op launches the kernels or raises: fp16, an operand
-    left on the CPU, a float64 weight; no launch is made for them."""
-    from stif_tpu_torch.ops import dcn_im2col, deform_conv2d
+    left on the CPU, a float64 weight, a non-contiguous x; no launch is made
+    for them."""
+    from stif_tpu_torch.ops import dcn_forward, deform_conv2d
 
     x, off, mask = _dcn_inputs(cuda, 1, 8, 8, 16, 4)
     w = torch.randn(8, 16, 3, 3, device=cuda)
-    before = dcn_im2col.launches
+    before = dcn_forward.launches
     with pytest.raises(ValueError, match="float32"):
         deform_conv2d(x.half(), off, mask, w)
     with pytest.raises(ValueError, match="float32"):
@@ -652,10 +707,10 @@ def test_dcn_kernels_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError, match="float32"):
         deform_conv2d(x, off, mask, w.double())
     with pytest.raises(ValueError, match="contiguous"):
-        dcn_im2col(x.transpose(1, 2), off, mask)
-    assert dcn_im2col.launches == before
+        dcn_forward(x.transpose(1, 2), off, mask, w)
+    assert dcn_forward.launches == before
     deform_conv2d(x, off, mask, w)
-    assert dcn_im2col.launches == before + 1
+    assert dcn_forward.launches == before + 1
 
 
 def test_model_on_the_card_launches_the_dcn_kernels(small_model):
@@ -663,16 +718,16 @@ def test_model_on_the_card_launches_the_dcn_kernels(small_model):
     call (7 PCD pyramids of 6, both ConvLSTM directions in one batch) and
     agrees with the same model on the plain DCN."""
     from stif_tpu_torch.nn.dcn import set_dcn_kernel
-    from stif_tpu_torch.ops import dcn_im2col
+    from stif_tpu_torch.ops import dcn_forward
 
     build, x, times = small_model
     model = build()
-    before = dcn_im2col.launches
+    before = dcn_forward.launches
     with torch.inference_mode():
         got = model(x, times)
-    assert dcn_im2col.launches == before + 42
+    assert dcn_forward.launches == before + 42
     set_dcn_kernel(model, False)
     with torch.inference_mode():
         want = model(x, times)
-    assert dcn_im2col.launches == before + 42
+    assert dcn_forward.launches == before + 42
     assert (got - want).abs().max().item() <= 1e-4
