@@ -112,6 +112,17 @@ Run from the root of a checkout. In order:
       the card against the CPU (<= 1e-5); the native host resize, built
       here with ``g++``, against its plain version (<= 1e-5) and ms per
       1080p frame both ways;
+10. the bench (``stif_tpu_torch/runtime/bench.py``, the workload of
+   ``scripts/bench_torch.py``) at the deployed config, trained weights and
+   ``bench.py``'s sizes: ``bench_b1`` over 4 pairs (3 SIREN and 42
+   ``dcn_forward`` launches per window), ``bench_batched`` over the same
+   pairs in 2 batches of 2, ``full`` and through the ``ChunkedDecoder``
+   (chunk 65,536): each batch's uint8 frames against the b1 frames of its
+   pairs and chunked against full, within 1 LSB; frames/s, peak memory and
+   ``mfu`` (FLOPs from the module shapes over wall time per window over
+   the fp32 peak, in (0, 1]); then ``scripts/bench_torch.py`` once as a
+   subprocess (exit 0, its line parses and is logged) and the profile of
+   one streamed window (``runtime/profile.py``; its line is logged);
 6. the ``kernels`` JSON line (launches summed over every path driven; the
    DCN kernels' times are of one L1 call), then the result line.
 
@@ -181,14 +192,6 @@ DCN_ALTERNATIONS = 5  # [4]: windows timed with the DCN kernels and plain
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1988,6 +1991,99 @@ def parallel_phase(card: str, device) -> int:
     return count
 
 
+# ---------------------------------------------------------------- phase 10
+
+LSB = 1  # [10]: uint8 frames of two batchings of the same pairs
+
+
+def lsb_diff(a, b) -> int:
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes differ: {a.shape} vs {b.shape}")
+    return int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+
+
+def bench_phase(card: str, device) -> Launches:
+    """Phase 10. Returns the ``Launches`` of every path driven."""
+    import torch
+    from stif_tpu_torch.runtime import bench, profile
+
+    count = Launches()
+    torch.cuda.empty_cache()
+    model = bench.build(device, WEIGHTS, bench.Knobs())
+    times = bench.times_for(N_TIMES)
+    groups = bench.draw_pairs(np.random.default_rng(10), 2, LR_HW, 2)
+    pairs = groups.reshape((-1,) + groups.shape[2:])
+    windows = bench.WARMUP + len(pairs)
+    calls = bench.WARMUP + len(groups)  # batched calls, warm-up included
+    HH, WW = LR_HW[0] * SCALE, LR_HW[1] * SCALE
+    steps = -(-HH * WW // CHUNK)
+
+    log(f"[10] bench: b1 over {len(pairs)} pairs, batched over "
+        f"{len(groups)} x 2 of the same pairs (full, chunk {CHUNK}), "
+        f"LR {LR_HW[0]}x{LR_HW[1]}, {N_TIMES} times, trained weights")
+    b1 = count.run("bench_b1", 3 * windows,
+                   lambda: bench.bench_b1(model, pairs, times),
+                   dcn=(DCN_PER_PAIR * windows, 0))
+    if (b1["siren_launches"], b1["dcn_launches"]) != (3, DCN_PER_PAIR):
+        raise AssertionError(f"b1 launches per window "
+                             f"{b1['siren_launches']}, {b1['dcn_launches']}")
+    full = count.run("bench_batched full", 3 * calls,
+                     lambda: bench.bench_batched(model, groups, times),
+                     dcn=(DCN_PER_PAIR * calls, 0))
+    chunked = count.run(
+        f"bench_batched chunk {CHUNK}", 3 * steps * calls,
+        lambda: bench.bench_batched(model, groups, times, str(CHUNK)),
+        dcn=(DCN_PER_PAIR * calls, 0))
+    d_b1 = max(lsb_diff(g[:, j], b1["outs"][2 * i + j])
+               for i, g in enumerate(full["outs"]) for j in range(2))
+    d_chunk = max(lsb_diff(a, b)
+                  for a, b in zip(chunked["outs"], full["outs"]))
+    require("batched (full) uint8 frames vs b1 of the same pairs, max|d| "
+            "in LSB", d_b1, d_b1 <= LSB)
+    require("batched chunked vs full uint8 frames, max|d| in LSB", d_chunk,
+            d_chunk <= LSB)
+    flops = bench.window_flops(model, 1, N_TIMES, (HH, WW))
+    peak = bench.fp32_peak(device)
+    mfu = flops / b1["window_s"] / peak[1]
+    require(f"mfu ({flops / 1e12:.4f} TFLOP per window over "
+            f"{1e3 * b1['window_s']:.1f} ms, {peak[0]} fp32 peak "
+            f"{peak[1] / 1e12:.0f} TFLOP/s)", mfu, 0 < mfu <= 1)
+    dev_ms = b1["window_device_ms"]
+    log(f"  b1 {b1['fps']:.3f} frames/s ({1e3 * b1['window_s']:.1f} ms per "
+        f"window; device span per window "
+        f"{', '.join(f'{v:.1f}' for v in dev_ms)} ms), peak "
+        f"{b1['peak_gib']:.2f} GiB; 3 SIREN and {DCN_PER_PAIR} dcn_forward "
+        f"launches per window; batched full {full['fps']:.3f} frames/s, "
+        f"peak {full['peak_gib']:.2f} GiB; chunked {chunked['fps']:.3f} "
+        f"frames/s, peak {chunked['peak_gib']:.2f} GiB [{card}]")
+    del model, b1, full, chunked
+    torch.cuda.empty_cache()
+
+    log("[10] scripts/bench_torch.py as a subprocess")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "scripts/bench_torch.py"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"bench_torch.py exit {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    line = out.stdout.strip().splitlines()[-1]
+    rec = json.loads(line)
+    if rec["metric"] != "frames_per_sec" or not rec["value"] > 0:
+        raise AssertionError(f"bench_torch.py line: {line[:300]}")
+    log(f"  exit 0 in {time.perf_counter() - t0:.1f} s: {line}")
+
+    log("[10] profile of one streamed b1 window (runtime/profile.py)")
+    # the unprofiled stream (2 warm-up and 5 windows), the stage split (3
+    # encodes and 3 decodes) and the capture (a warm-up and 3 windows)
+    n = bench.WARMUP + bench.ITERS + 3 + 4
+    prof = count.run("profile", 3 * n,
+                     lambda: profile.run(device, bench.Knobs()),
+                     dcn=(DCN_PER_PAIR * n, 0))
+    log(f"  {json.dumps(prof)}")
+    return count
+
+
 def train_state(model) -> dict:
     """What a resume must restore: step, params, Adam moments, EMA (copies
     on the card)."""
@@ -2029,11 +2125,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    from stif_tpu_torch.runtime.bench import card_line, card_model
+
     t_start = time.perf_counter()
     device = torch.device("cuda")
     card = card_line()
     name = torch.cuda.get_device_name(0)
-    peaks = PEAKS["PCIe" if "PCIe" in name else "SXM"]
+    peaks = PEAKS[card_model(name).split()[-1]]
     log(f"[1] device: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     torch.backends.cudnn.allow_tf32 = False
@@ -2086,6 +2184,10 @@ def main() -> int:
     t9 = time.perf_counter()
     launches += add(parallel_phase(card, device))
     log(f"    phase 9: {time.perf_counter() - t9:.1f} s")
+
+    t10 = time.perf_counter()
+    launches += add(bench_phase(card, device))
+    log(f"    phase 10: {time.perf_counter() - t10:.1f} s")
 
     kernels = {"kernels": [{
         "name": "siren_fused",

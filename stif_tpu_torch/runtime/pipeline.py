@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import List, Sequence, Tuple
+from typing import Callable, ContextManager, Iterable, Iterator, List, \
+    Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -109,33 +110,50 @@ class InferencePipeline:
 
     def _launch(self, frames: np.ndarray, times: Sequence[float]):
         """Queue one window's compute and the start of its copy to the
-        host; ``_fetch`` waits for it. On a CUDA device the copy runs on a
-        side stream that waits for an event recorded when the compute ends,
-        into pinned host memory, so that the next window's compute (queued
-        on the compute stream meanwhile) overlaps it. The inputs go up from
-        pinned memory without a wait, so that queueing this window does not
-        first wait for the previous one's compute to end. The events and
-        streams are those of ``self.device``, whichever card is current."""
+        host (``stage``, then ``_launch_staged``); ``_fetch`` waits for
+        it."""
+        return self._launch_staged(*self.stage(frames, times))
+
+    def _device_scope(self):
+        return (torch.cuda.device(self.device) if self.device.type == "cuda"
+                else contextlib.nullcontext())
+
+    def stage(self, frames: np.ndarray, times: Sequence[float]):
+        """Pad ``frames`` and put them and ``times`` on the device: a
+        window for ``stream``, (x (1, N, Hp, Wp, 3), times (nt,), (h, w)
+        before padding). On a CUDA device the inputs go up from pinned
+        memory without a wait, so that staging a window does not first wait
+        for the previous one's compute to end."""
         x, (h, w) = pad_to_multiple(np.asarray(frames, np.float32), 4,
                                     self.bucket)
-        hp, wp = x.shape[1], x.shape[2]
-        cuda = self.device.type == "cuda"
-        with torch.inference_mode(), (torch.cuda.device(self.device) if cuda
-                                      else contextlib.nullcontext()):
+        with torch.inference_mode(), self._device_scope():
             xt, t = (torch.from_numpy(x[None]),
                      torch.from_numpy(np.asarray(times, np.float32)))
-            if cuda:
+            if self.device.type == "cuda":
                 xt, t = (v.pin_memory().to(self.device, non_blocking=True)
                          for v in (xt, t))
             else:
                 xt, t = xt.to(self.device), t.to(self.device)
+        return xt, t, (h, w)
+
+    def _launch_staged(self, xt: torch.Tensor, t: torch.Tensor, hw):
+        """Queue the compute of a window ``stage`` put on the device and
+        the start of its copy to the host. On a CUDA device the copy runs
+        on a side stream that waits for an event recorded when the compute
+        ends, into pinned host memory, so that the next window's compute
+        (queued on the compute stream meanwhile) overlaps it. The events
+        and streams are those of ``self.device``, whichever card is
+        current."""
+        hp, wp = xt.shape[2], xt.shape[3]
+        cuda = self.device.type == "cuda"
+        with torch.inference_mode(), self._device_scope():
             out = self.model(xt, t, out_size=(hp * self.scale,
                                               wp * self.scale),
                              test=self.test_mode,
                              local_ensemble=self.local_ensemble)
             out = out[:, 0].contiguous()
             if not cuda:
-                return out, None, (h, w)
+                return out, None, hw
             computed = torch.cuda.Event()
             computed.record()
             side = self._copy_stream()
@@ -149,7 +167,7 @@ class InferencePipeline:
             # the caching allocator must not hand ``out``'s memory to the
             # next window while the side stream still reads it
             out.record_stream(side)
-        return host, copied, (h, w)
+        return host, copied, hw
 
     def _fetch(self, pending) -> np.ndarray:
         """Wait for a launched window's copy; (nt, H*scale, W*scale, 3)
@@ -228,20 +246,39 @@ class InferencePipeline:
         out = np.moveaxis(out, 0, 1)  # (B, nt, HH, WW, 3)
         return out[:, :, :h * self.scale, :w * self.scale]
 
+    def stream(self, staged: Iterable,
+               around_launch: Optional[Callable[[], ContextManager]] = None
+               ) -> Iterator[np.ndarray]:
+        """Render ``stage``d windows in order, double-buffered: window i + 1
+        is launched before window i is fetched, so that window i's copy to
+        the host overlaps window i + 1's compute. Yields (nt, H*scale,
+        W*scale, 3) per window; ``staged`` is read lazily, one window ahead
+        of the fetch. ``around_launch``, when given, makes a context
+        manager that is entered around each window's launch (CUDA events
+        that bracket its compute, say)."""
+        def launch(window):
+            with (around_launch() if around_launch is not None
+                  else contextlib.nullcontext()):
+                return self._launch_staged(*window)
+
+        pending = None
+        for window in staged:
+            nxt = launch(window)
+            if pending is not None:
+                yield self._fetch(pending)
+            pending = nxt
+        if pending is not None:
+            yield self._fetch(pending)
+
     def render_sequence(self, frames: np.ndarray,
                         n_times: int = 8) -> List[np.ndarray]:
         """Stream a sequence (T, H, W, 3) through overlapping frame pairs,
         ``n_times`` frames per pair at times i / n_times. Returns a list of
-        (n_times, H*scale, W*scale, 3). Double-buffered: pair i + 1 is
-        launched before pair i is fetched, so that pair i's copy to the
-        host overlaps pair i + 1's compute; the frames equal those of
+        (n_times, H*scale, W*scale, 3). Double-buffered (``stream``), each
+        pair staged just before its launch; the frames equal those of
         ``render_window`` pair by pair, bitwise."""
+        if frames.shape[0] < 2:
+            raise ValueError("render_sequence needs at least two frames")
         times = [i / n_times for i in range(n_times)]
-        outs = []
-        pending = self._launch(frames[0:2], times)
-        for i in range(1, frames.shape[0] - 1):
-            nxt = self._launch(frames[i:i + 2], times)
-            outs.append(self._fetch(pending))
-            pending = nxt
-        outs.append(self._fetch(pending))
-        return outs
+        return list(self.stream(self.stage(frames[i:i + 2], times)
+                                for i in range(frames.shape[0] - 1)))

@@ -1,8 +1,9 @@
 """The port stands alone: importing ``stif_tpu_torch`` and every submodule
-(``parallel/`` and the data, ops and utils modules of the last slice among
-them) loads no ``jax``, ``flax`` or ``stif_tpu`` module, and no source of the
-port (or ``chip_smoke.py``, or the port's scripts ``scripts/*_torch.py``,
-the supervisor's included) imports one."""
+(``parallel/``, the data, ops and utils modules, ``runtime/bench.py`` and
+``runtime/profile.py`` among them) and executing every script
+``scripts/*_torch.py`` (the supervisor, the bench, the profile and the host
+tools among them) loads no ``jax``, ``flax`` or ``stif_tpu`` module, and no
+source of the port, ``chip_smoke.py`` or those scripts imports one."""
 
 import re
 import subprocess
@@ -37,7 +38,7 @@ def test_import_loads_no_jax():
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.strip().splitlines()
-    assert int(n_modules) >= 66
+    assert int(n_modules) >= 76
     assert bad == "[]"
 
 
@@ -49,9 +50,13 @@ def test_sources_import_no_jax():
     scripts = sorted((ROOT / "scripts").glob("*_torch.py"))
     assert {p.name for p in scripts} >= {
         "test_video_torch.py", "eval_model_torch.py", "train_torch.py",
-        "train_supervisor_torch.py"}
+        "train_supervisor_torch.py", "bench_torch.py",
+        "profile_bench_torch.py", "decode_decompose_torch.py",
+        "offset_stats_torch.py", "export_checkpoint_torch.py",
+        "dev_bicubic_bar_torch.py", "make_vimeo_lmdb_torch.py",
+        "aggregate_eval_torch.py"}
     sources += [ROOT / "chip_smoke.py"] + scripts
-    assert len(sources) >= 68
+    assert len(sources) >= 78
     for path in sources:
         hits = pattern.findall(path.read_text())
         assert not hits, f"{path} imports {hits}"
