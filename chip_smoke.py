@@ -35,7 +35,12 @@ Run from the root of a checkout. In order:
    the plain SIREN (max|d| <= 1e-3), a small window against the port on the
    CPU (max|d| <= 1e-3), timings, and one window's device time by kernel;
    42 ``dcn_forward`` launches per window, the window with the plain DCN
-   (max|d| <= 1e-3), both timed in 5 alternating runs and profiled;
+   (max|d| <= 1e-3), both timed in 5 alternating runs and profiled (with
+   the host-blocking calls of each profiled call); once the warm-up window
+   has built the bucket's constants (``ops/constants.py``), the window's
+   model call and ``stream``'s launches run under CUDA's sync debug mode
+   "error", which raises on any host-blocking call (the same check follows
+   every path named below as "no host sync");
 5. the rest of the serving surface, same model, weights and pair:
    a. the kernel against plain at the chunked stages' shapes (8 x 65,536
       rows, separate contiguous fields), at a batch of two (fields broadcast
@@ -43,10 +48,12 @@ Run from the root of a checkout. In order:
    b. ``ChunkedDecoder.decode`` against the full ``decode`` of the same
       features (max|d| <= 1e-4, 12 launches);
    c. ``render_pairs`` of two different pairs against ``render_window`` of
-      each (max|d| <= 1e-3);
+      each (max|d| <= 1e-3); no host sync in its ``gen_feat`` and chunk
+      steps, and one host sync a chunk step in all (its RGB to the host);
    d. local-ensemble and test-mode windows (shape, finite, 12 and 3
       launches, the plain-SIREN window and a 16x16 window on the CPU within
-      1e-3), and a 64x64 ``decode_zoom`` window against the CPU;
+      1e-3, no host sync), and a 64x64 ``decode_zoom`` window against the
+      CPU;
    e. each knob against the fp32 window, under the JAX package's own bars
       (``mlp_dtype`` must launch the kernel 0 times);
    f. one production-size window through the chunked path, LR 270x480 ->
@@ -63,10 +70,11 @@ Run from the root of a checkout. In order:
    b. those three at full width (nf 64, groups 8, 5 + 40 blocks) on the
       96x160 pair at 8 times: shape, finite, exactly 3 / 2 / 1 launches, the
       same forward with the plain SIREN and a 16x16 window on the CPU within
-      1e-3, ms and peak memory;
+      1e-3, ms and peak memory, no host sync;
    c. ``LunaTokisZSM`` and ``TMNet`` at full width (TMNet through
-      ``render_window_tmnet``, 4 frames and 5 times, 19 frames out; and
-      without times): 0 launches, a small window against the CPU, ms;
+      ``render_window_tmnet``, 4 frames and 5 times, 19 frames out, no host
+      sync; and without times): 0 launches, a small window against the
+      CPU, ms;
    d. every ``LIIF_<preset>`` through ``define_g`` from a plain dict, and
       ``decode_mulfeat`` on ``test4``: finite, against the CPU, 0 launches;
    e. ``eval_adobe_tmnet`` and ``eval_vid4_tmnet`` on rendered folders:
@@ -77,10 +85,12 @@ Run from the root of a checkout. In order:
       and x8 buckets (B 4, nt 3): 2 warm-up and 6 timed steps each, per
       step the bucket, loss and grad norm; then ms per step by CUDA events
       (median, min, max), the forward / backward / optimizer split,
-      samples/s, peak memory, and at x4 one profiled step's top kernels and
-      the device's idle share; no SIREN launch, 78 ``dcn_forward`` (42,
-      and 36 recomputed by the ConvLSTM's remat) and 42 ``dcn_backward``
-      launches a step;
+      samples/s, peak memory, and at x4 one profiled step (``feed_data``
+      and ``optimize_parameters``): its top kernels, the device's idle
+      share and its host-blocking calls; then ms per step at x4 with the
+      loader's thread stopped, on batches drawn before; no SIREN launch,
+      78 ``dcn_forward`` (42, and 36 recomputed by the ConvLSTM's remat)
+      and 42 ``dcn_backward`` launches a step;
    b. ten steps on one fixed x4 batch with warmup off: the loss falls;
    c. one step from the same init on the card and on the CPU (B 1, LR
       16x16, nt 2): loss within rtol 1e-4, grad norm within rtol 1e-3, and
@@ -118,13 +128,18 @@ Run from the root of a checkout. In order:
    ``dcn_forward`` launches per window), ``bench_batched`` over the same
    pairs in 2 batches of 2, ``full`` and through the ``ChunkedDecoder``
    (chunk 65,536): each batch's uint8 frames against the b1 frames of its
-   pairs and chunked against full, within 1 LSB; frames/s, peak memory and
-   ``mfu`` (FLOPs from the module shapes over wall time per window over
-   the fp32 peak, in (0, 1]); then ``scripts/bench_torch.py`` once as a
-   subprocess (exit 0, its line parses and is logged) and the profile of
-   one streamed window (``runtime/profile.py``; its line is logged);
-6. the ``kernels`` JSON line (launches summed over every path driven; the
-   DCN kernels' times are of one L1 call), then the result line.
+   pairs and chunked against full, within 1 LSB; no host sync in the
+   batched model calls (``full`` and ``tsplit``, B = 2); frames/s, peak
+   memory and ``mfu`` (FLOPs from the module shapes over wall time per
+   window over the fp32 peak, in (0, 1]); then ``scripts/bench_torch.py``
+   once as a subprocess (exit 0, its line parses and is logged) and the
+   profile of one streamed window (``runtime/profile.py``; its line is
+   logged), which must hold exactly one host-blocking call: the fetch's
+   ``cudaEventSynchronize``;
+6. the paths checked for host syncs, the per-bucket constants held on each
+   device (builds, hits, bytes), the ``kernels`` JSON line (launches summed
+   over every path driven; the DCN kernels' times are of one L1 call), then
+   the result line.
 
 Any failed check raises and the script exits non-zero; without a CUDA
 device it exits 2 and prints no result. ``python3 chip_smoke.py --kernels``
@@ -136,6 +151,7 @@ not.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -620,19 +636,25 @@ def dcn_kernel_phase(device, peaks, card):
 
 def device_profile(fn, wall_ms: float, what: str, card: str,
                    top: int = 12) -> None:
-    """Device time of one call of ``fn`` by kernel (``torch.profiler``), and
-    the device's idle share of an unprofiled call's wall time
-    ``wall_ms``."""
+    """Device time of one call of ``fn`` by kernel (``torch.profiler``), the
+    device's idle share of an unprofiled call's wall time ``wall_ms``, and
+    the host-blocking calls of the call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from stif_tpu_torch.runtime.profile import BLOCKING
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
+    averages = prof.key_averages()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
+            for e in averages
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
+    blocking = {e.key: e.count for e in averages if e.key in BLOCKING}
+    log(f"  host-blocking calls per {what}: {sum(blocking.values())} "
+        f"{json.dumps(blocking)}")
     busy = sum(ms for _, ms, _ in rows)
     if not rows:
         log("  profile: the profiler saw no device time (not measured)")
@@ -650,6 +672,65 @@ def device_profile(fn, wall_ms: float, what: str, card: str,
         log(f"    {label}: {sum(m for m, _ in hit):.2f} ms in "
             f"{sum(n for _, n in hit)} launches")
     return rows
+
+
+SYNC_CHECKED = []  # the paths whose model calls ran with no host sync
+
+
+@contextlib.contextmanager
+def no_host_sync(what: str):
+    """CUDA's sync debug mode at "error" inside, put back after: a
+    host-blocking call (a copy from pageable memory, ``.item()``,
+    ``.cpu()``, a stream sync) raises, named after the path ``what``."""
+    import torch
+
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    except RuntimeError as e:
+        raise AssertionError(f"{what}: a host sync in the model call: "
+                             f"{e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    SYNC_CHECKED.append(what)
+
+
+@contextlib.contextmanager
+def sync_checked(what: str, obj, methods=("forward",)):
+    """Inside, each of ``obj``'s ``methods`` runs under ``no_host_sync``
+    (instance attributes over the class's methods, taken away after)."""
+    def wrap(fn):
+        def call(*args, **kwargs):
+            with no_host_sync(what):
+                return fn(*args, **kwargs)
+        return call
+
+    for name in methods:
+        setattr(obj, name, wrap(getattr(obj, name)))
+    try:
+        yield
+    finally:
+        for name in methods:
+            delattr(obj, name)
+
+
+def host_syncs(fn) -> int:
+    """The host-blocking calls of ``fn()``, counted by CUDA's sync debug
+    mode at "warn" (one warning each)."""
+    import warnings
+
+    import torch
+
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 def main_path(card: str):
@@ -704,6 +785,13 @@ def main_path(card: str):
         f"(runs {', '.join(f'{1e3 * s:.1f}' for s in window_s)} ms), "
         f"{N_TIMES / win:.2f} frames/s, peak memory "
         f"{peak / 2**30:.2f} GiB [{card}]")
+    # the bucket's constants were built by the warm-up window: its model
+    # call, and the stream's launches, now make no host sync
+    with sync_checked("render_window, b1", model):
+        pipe.render_window(frames, times)
+    staged = [pipe.stage(frames, times) for _ in range(2)]
+    list(pipe.stream(staged, lambda: no_host_sync("stream's launch, b1")))
+    log("  no host sync in render_window's model call or stream's launch")
 
     # encode / decode split on device tensors (CUDA events)
     x = torch.from_numpy(frames[None]).to(pipe.device)
@@ -988,6 +1076,14 @@ def slice_phase(card: str, device) -> int:
         lambda: timed(lambda: pipe.render_pairs(pairs, times)))
     log(f"  render_pairs, 2 pairs: {fmt_runs(runs)}, peak {peak:.2f} GiB "
         f"[{card}]")
+    with sync_checked("render_pairs, B = 2", model,
+                      ("gen_feat", "decode_chunk_ab", "decode_chunk_cd")):
+        syncs = host_syncs(lambda: pipe.render_pairs(pairs, times))
+    if syncs != steps:
+        raise AssertionError(f"render_pairs: {syncs} host syncs, expected "
+                             f"{steps} (one chunk's RGB to the host a step)")
+    log(f"  render_pairs: no host sync in gen_feat or a chunk step; {syncs} "
+        "in all, each chunk's RGB to the host")
     del both, pairs
 
     log("[5d] local-ensemble, test-mode and zoom windows")
@@ -1006,6 +1102,8 @@ def slice_phase(card: str, device) -> int:
         log(f"  {mode} window {out.shape}, finite, {expect} launches: "
             f"{fmt_runs(runs)}, peak {peak:.2f} GiB; max|d| to the default "
             f"window {max_abs(out, window):.3e} [{card}]")
+        with sync_checked(f"{mode} window", model):
+            pipe.render_window(frames, times)
         set_fused(model, False)
         plain = count.run(f"{mode}, plain SIREN", 0,
                           lambda: pipe.render_window(frames, times))
@@ -1274,6 +1372,8 @@ def zoo_phase(card: str, device) -> int:
                               lambda: model(x, t).cpu().numpy())
             plain_ms = 1e3 * (time.perf_counter() - t0)
             set_fused(model, True)
+            with no_host_sync(f"{name} window"):
+                model(x, t)
             gpu = count.run(f"{name}, 16x16", expect,
                             lambda: model(xs.to(device), t[:2]).cpu().numpy())
             ref = cpu_model(xs, t[:2].cpu()).numpy()
@@ -1319,6 +1419,8 @@ def zoo_phase(card: str, device) -> int:
         lambda: timed(lambda: pipe.render_window_tmnet(frames, tm_times)))
     log(f"  TMNet render_window_tmnet, 4 frames x 5 times -> {out.shape}, "
         f"finite, 0 launches: {fmt_runs(runs)}, peak {peak:.2f} GiB [{card}]")
+    with sync_checked("render_window_tmnet", tmnet):
+        pipe.render_window_tmnet(frames, tm_times)
     x4 = torch.from_numpy(frames[None]).to(device)
     with torch.inference_mode():
         no_t = count.run("TMNet without times", 0,
@@ -1522,10 +1624,22 @@ def train_speed(opt: dict, card: str) -> None:
             f"{1e3 * B / med['step']:.2f} samples/s; host wall "
             f"{np.median(walls):.1f} ms/step; peak {peak:.2f} GiB [{card}]")
         if bucket == TRAIN_BUCKETS[0]:  # one profiled step at x4
-            model.feed_data(next(gen))
-            device_profile(model.optimize_parameters,
+            batch = next(gen)
+            device_profile(lambda: (model.feed_data(batch),
+                                    model.optimize_parameters()),
                            float(np.median(walls)), "x4 train step", card,
                            top=15)
+            # the same steps with the loader's thread stopped, on batches
+            # drawn before: what the loader's host work costs a step
+            drawn = [next(gen) for _ in range(TIMED_STEPS)]
+            gen.close()
+            quiet = []
+            for batch in drawn:
+                model.feed_data(batch)
+                quiet.append(timed_step(model)[1]["step"])
+            log(f"  x4, loader stopped ({TIMED_STEPS} steps on batches drawn "
+                f"before): {np.median(quiet):.1f} ms/step median (min "
+                f"{min(quiet):.1f}, max {max(quiet):.1f}) [{card}]")
         gen.close()
 
 
@@ -1552,7 +1666,10 @@ def train_phase(card: str, device) -> int:
     log("[8a] train steps at the r5 config's full width: ms, split, "
         "samples/s, peak, profile")
     count.run("train steps", 0, lambda: train_speed(opt, card))
-    n_steps = len(TRAIN_BUCKETS) * (WARM_STEPS + TIMED_STEPS) + 1
+    # the warm-up and timed steps of each bucket, the x4 bucket's profiled
+    # step and its steps with the loader stopped
+    n_steps = (len(TRAIN_BUCKETS) * (WARM_STEPS + TIMED_STEPS) + 1
+               + TIMED_STEPS)
     fwd, bwd = count.last
     log(f"  DCN launches in {n_steps} steps: {fwd} dcn_forward, {bwd} "
         "dcn_backward")
@@ -2034,6 +2151,23 @@ def bench_phase(card: str, device) -> Launches:
         f"bench_batched chunk {CHUNK}", 3 * steps * calls,
         lambda: bench.bench_batched(model, groups, times, str(CHUNK)),
         dcn=(DCN_PER_PAIR * calls, 0))
+    xb = torch.from_numpy(groups[0]).to(device)
+    tb = torch.tensor(times, device=device)
+    half = N_TIMES // 2
+    with torch.inference_mode():
+        with no_host_sync("batched full, B = 2"):
+            model(xb, tb)
+
+        def tsplit():
+            feat = model.gen_feat(xb)
+            return model.decode(feat, xb, tb[:half]), model.decode(
+                feat, xb, tb[half:])
+
+        tsplit()  # one call before the check, as on every path
+        with no_host_sync("batched tsplit, B = 2"):
+            tsplit()
+    del xb
+    log("  no host sync in the batched model calls (full, tsplit)")
     d_b1 = max(lsb_diff(g[:, j], b1["outs"][2 * i + j])
                for i, g in enumerate(full["outs"]) for j in range(2))
     d_chunk = max(lsb_diff(a, b)
@@ -2081,6 +2215,11 @@ def bench_phase(card: str, device) -> Launches:
                      lambda: profile.run(device, bench.Knobs()),
                      dcn=(DCN_PER_PAIR * n, 0))
     log(f"  {json.dumps(prof)}")
+    blocking = prof["blocking"]
+    require(f"host-blocking calls in the profiled b1 window "
+            f"({json.dumps(blocking['calls'])}, the host blocked "
+            f"{blocking['host_blocked_ms']} ms)", blocking["per_window"],
+            blocking["per_window"] == 1)
     return count
 
 
@@ -2218,6 +2357,12 @@ def main() -> int:
          dcn_launches[0]),
         ("dcn_backward", "stif_tpu/ops/deform_conv.py:161",
          dcn_launches[1]))]}
+    from stif_tpu_torch.ops import constants
+
+    paths = list(dict.fromkeys(SYNC_CHECKED))
+    log(f"[6] no host sync in the model call of {len(paths)} warm paths: "
+        f"{'; '.join(paths)}")
+    log(f"    per-bucket constants by device: {json.dumps(constants.stats())}")
     log(f"[6] done in {time.perf_counter() - t_start:.1f} s; SIREN kernel "
         "times are the sum of the deployed model's three nets of one window, "
         "DCN kernel times those of one L1 call (96x160, B 1); launches the "

@@ -36,7 +36,8 @@ from stif_tpu_torch.nn.blocks import Conv, ResidualTrunk, lrelu, remat
 from stif_tpu_torch.nn.convlstm import BiDeformableConvLSTM
 from stif_tpu_torch.nn.pcd import PCDAlign
 from stif_tpu_torch.nn.siren import Siren
-from stif_tpu_torch.ops.coords import make_coord, make_coord_demo
+from stif_tpu_torch.ops.constants import vector
+from stif_tpu_torch.ops.coords import make_coord_cached, make_coord_demo
 from stif_tpu_torch.ops.grid_sample import grid_sample
 from stif_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from stif_tpu_torch.ops.resize import imresize_to, resize_bilinear
@@ -227,7 +228,7 @@ class LunaTokis(nn.Module):
         B, H, W = feat.shape[:3]
         dev = feat.device
         coord_xy = coord_q.flip(-1)  # grid_sample wants (x, y)
-        feat_coord = make_coord((H, W), flatten=False, device=dev)
+        feat_coord = make_coord_cached((H, W), flatten=False, device=dev)
         feat_coord = feat_coord[None].expand(B, H, W, 2)
 
         # stage A gathers: every LR field sampled at the same grid, at once
@@ -235,8 +236,8 @@ class LunaTokis(nn.Module):
         q_a = grid_sample(torch.cat([feat, inp_cat, feat_coord], -1),
                           coord_xy, mode="nearest")
         q_coord = q_a[..., nfc + nic:]
-        rel = (coord_ref - q_coord) * torch.tensor(
-            [H, W], dtype=coord_ref.dtype, device=dev)
+        rel = (coord_ref - q_coord) * vector(H, W, dtype=coord_ref.dtype,
+                                             device=dev)
         area = (rel[..., 0] * rel[..., 1]).abs() + 1e-9
         base_a = torch.cat([q_a[..., :nfc + nic], rel], -1)  # (B, Q, 3nf+8)
 
@@ -343,7 +344,7 @@ class LunaTokis(nn.Module):
         B, H, W = feat.shape[:3]
         if coords is None:
             HH, WW = out_size if out_size is not None else (4 * H, 4 * W)
-            coord = make_coord((HH, WW), device=feat.device)
+            coord = make_coord_cached((HH, WW), device=feat.device)
             coord = coord.clamp(-1 + _EPS, 1 - _EPS)
         else:
             HH, WW = out_size
@@ -366,8 +367,8 @@ class LunaTokis(nn.Module):
         preds, areas = [], []
         for vx in (-1, 1):
             for vy in (-1, 1):
-                shift = torch.tensor([vx * rx + _EPS, vy * ry + _EPS],
-                                     dtype=coord.dtype, device=coord.device)
+                shift = vector(vx * rx + _EPS, vy * ry + _EPS,
+                               dtype=coord.dtype, device=coord.device)
                 coord_s = (coord + shift).clamp(-1 + _EPS, 1 - _EPS)
                 rgb, area = self._decode_pass(feat, inp_cat, hr_inp, coord_s,
                                               coord, times, HH, WW,
@@ -397,13 +398,13 @@ class LunaTokis(nn.Module):
         B, H, W = feat.shape[:3]
         dev = feat.device
         cxy = coord_chunk.flip(-1)
-        feat_coord = make_coord((H, W), flatten=False, device=dev)
+        feat_coord = make_coord_cached((H, W), flatten=False, device=dev)
         feat_coord = feat_coord[None].expand(B, H, W, 2)
         q_feat_a = grid_sample(feat, cxy, mode="nearest")
         q_inp_a = grid_sample(inp_cat, cxy, mode="nearest")
         q_coord = grid_sample(feat_coord, cxy, mode="nearest")
-        rel = (coord_chunk - q_coord) * torch.tensor(
-            [H, W], dtype=coord_chunk.dtype, device=dev)
+        rel = (coord_chunk - q_coord) * vector(H, W, dtype=coord_chunk.dtype,
+                                               device=dev)
         base_a = torch.cat([q_feat_a, q_inp_a, rel], -1)
         # these two gathers take gather_dtype only, as in the JAX package
         q_inp_b = grid_sample(hr_inp, cxy, source_dtype=self.gather_dtype)
@@ -438,8 +439,8 @@ class LunaTokis(nn.Module):
         def tile_b(v):  # (B, h, w, C) -> (nt*B, h, w, C)
             return v.expand(nt, *v.shape).reshape(ntB, *v.shape[1:])
 
-        norm = torch.tensor([(WW - 1.0) / 2.0, (HH - 1.0) / 2.0],
-                            dtype=flow_chunk.dtype, device=flow_chunk.device)
+        norm = vector((WW - 1.0) / 2.0, (HH - 1.0) / 2.0,
+                      dtype=flow_chunk.dtype, device=flow_chunk.device)
         g1 = base_grid_chunk[None] + flow_chunk[..., 0:2] / norm
         g2 = base_grid_chunk[None] + flow_chunk[..., 2:4] / norm
         g1 = g1.clamp(-1 + _EPS, 1 - _EPS)

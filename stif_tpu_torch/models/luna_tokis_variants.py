@@ -33,7 +33,8 @@ from stif_tpu_torch.models.luna_tokis import _times_nb, add_encoder, encode
 from stif_tpu_torch.models.registry import register_model
 from stif_tpu_torch.nn.blocks import Conv, lrelu
 from stif_tpu_torch.nn.siren import Siren
-from stif_tpu_torch.ops.coords import make_coord
+from stif_tpu_torch.ops.constants import vector
+from stif_tpu_torch.ops.coords import make_coord_cached
 from stif_tpu_torch.ops.fold import fold3x3
 from stif_tpu_torch.ops.grid_sample import grid_sample
 from stif_tpu_torch.ops.pixel_shuffle import pixel_shuffle
@@ -75,15 +76,16 @@ class Queries:
         dev = feat.device
         self.nfc, self.nic = nfc, inp_cat.shape[-1]
         self.Q = HH * WW
-        coord = make_coord((HH, WW), device=dev).clamp(-1 + _EPS, 1 - _EPS)
+        coord = make_coord_cached((HH, WW), device=dev).clamp(-1 + _EPS,
+                                                              1 - _EPS)
         coord = coord[None].expand(B, self.Q, 2)
         self.cxy = coord.flip(-1)
-        feat_coord = make_coord((H, W), flatten=False, device=dev)
+        feat_coord = make_coord_cached((H, W), flatten=False, device=dev)
         feat_coord = feat_coord[None].expand(B, H, W, 2)
         q = grid_sample(torch.cat([feat, inp_cat, feat_coord], -1), self.cxy,
                         mode="nearest")
-        rel = (coord - q[..., nfc + self.nic:]) * torch.tensor(
-            [H, W], dtype=coord.dtype, device=dev)
+        rel = (coord - q[..., nfc + self.nic:]) * vector(
+            H, W, dtype=coord.dtype, device=dev)
         self.base = torch.cat([q[..., :nfc + self.nic], rel], -1)
         t_nb = _times_nb(times, B, dev)
         self.nt, self.B = t_nb.shape[0], B

@@ -1,9 +1,31 @@
-"""LIIF cell-centre coordinates (port of ``stif_tpu/ops/coords.py``)."""
+"""LIIF cell-centre coordinates (port of ``stif_tpu/ops/coords.py``).
+
+``make_coord`` and ``make_coord_demo`` return a tensor the caller owns;
+the forward reads its grids through ``make_coord_cached``, one shared
+device copy per (shape, device) from the per-bucket store
+(``ops/constants.py``), with the same values.
+"""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from stif_tpu_torch.ops.constants import constant
+
+
+def _coord_np(shape, ranges, flatten: bool) -> np.ndarray:
+    """``make_coord``'s values as a float32 numpy array."""
+    seqs = []
+    for i, n in enumerate(shape):
+        v0, v1 = (-1.0, 1.0) if ranges is None else ranges[i]
+        r = (v1 - v0) / (2 * n)
+        seqs.append(v0 + r + (2 * r) * np.arange(n, dtype=np.float64))
+    grids = np.meshgrid(*seqs, indexing="ij")
+    ret = np.stack(grids, axis=-1).astype(np.float32)
+    if flatten:
+        ret = ret.reshape(-1, ret.shape[-1])
+    return ret
 
 
 def make_coord(shape, ranges=None, flatten: bool = True, device=None,
@@ -16,16 +38,17 @@ def make_coord(shape, ranges=None, flatten: bool = True, device=None,
     computed in float64 and rounded once to float32, as the JAX package does.
     Returns ``(*shape, len(shape))`` or ``(prod(shape), len(shape))``.
     """
-    seqs = []
-    for i, n in enumerate(shape):
-        v0, v1 = (-1.0, 1.0) if ranges is None else ranges[i]
-        r = (v1 - v0) / (2 * n)
-        seqs.append(v0 + r + (2 * r) * np.arange(n, dtype=np.float64))
-    grids = np.meshgrid(*seqs, indexing="ij")
-    ret = np.stack(grids, axis=-1).astype(np.float32)
-    if flatten:
-        ret = ret.reshape(-1, ret.shape[-1])
-    return torch.from_numpy(ret).to(device=device, dtype=dtype)
+    return torch.from_numpy(_coord_np(shape, ranges, flatten)).to(
+        device=device, dtype=dtype)
+
+
+def make_coord_cached(shape, flatten: bool = True, device=None,
+                      dtype=torch.float32) -> torch.Tensor:
+    """``make_coord(shape, flatten=flatten)`` over (-1, 1), shared from the
+    per-bucket store: built on the first call of a shape and device, and
+    read-only (an op that writes in place must take a copy)."""
+    return constant(_coord_np, tuple(int(n) for n in shape), None,
+                    bool(flatten), device=device, dtype=dtype)
 
 
 def make_coord_demo(shape, new_shape, center, device=None) -> torch.Tensor:

@@ -8,7 +8,9 @@
 
 Both are separable: NumPy builds a constant (out, in) matrix per axis from
 the static shapes, and the resample is two fp32 matrix products, exactly as
-in the JAX package. The matrix builders are this package's own copies.
+in the JAX package. The matrix builders are this package's own copies. The
+matrices come from the per-bucket store (``ops/constants.py``): built and
+uploaded on the first call of a shape, read on the device after.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from stif_tpu_torch.ops.constants import constant
 
 
 def _cubic(x):
@@ -96,11 +100,11 @@ def _bilinear_resize_matrix(in_length: int, out_length: int,
     return M.astype(np.float32)
 
 
-def _separable(img: torch.Tensor, M_h: np.ndarray,
-               M_w: np.ndarray) -> torch.Tensor:
-    """Apply (out_h, in_h) and (out_w, in_w) matrices to (..., H, W, C)."""
-    mh = torch.as_tensor(M_h, device=img.device)
-    mw = torch.as_tensor(M_w, device=img.device)
+def _separable(img: torch.Tensor, builder, args_h, args_w) -> torch.Tensor:
+    """Apply the (out_h, in_h) and (out_w, in_w) matrices ``builder`` makes
+    from ``args_h`` and ``args_w`` to (..., H, W, C)."""
+    mh = constant(builder, *args_h, device=img.device)
+    mw = constant(builder, *args_w, device=img.device)
     out = torch.einsum("oh,...hwc->...owc", mh, img)
     return torch.einsum("ow,...hwc->...hoc", mw, out)
 
@@ -112,9 +116,9 @@ def imresize(img: torch.Tensor, scale: float,
     img = torch.as_tensor(img, dtype=torch.float32)
     in_h, in_w = img.shape[-3], img.shape[-2]
     out_h, out_w = math.ceil(in_h * scale), math.ceil(in_w * scale)
-    return _separable(img,
-                      _matlab_resize_matrix(in_h, out_h, scale, antialiasing),
-                      _matlab_resize_matrix(in_w, out_w, scale, antialiasing))
+    return _separable(img, _matlab_resize_matrix,
+                      (in_h, out_h, scale, antialiasing),
+                      (in_w, out_w, scale, antialiasing))
 
 
 def imresize_to(img: torch.Tensor, out_hw,
@@ -124,10 +128,9 @@ def imresize_to(img: torch.Tensor, out_hw,
     img = torch.as_tensor(img, dtype=torch.float32)
     in_h, in_w = img.shape[-3], img.shape[-2]
     out_h, out_w = int(out_hw[0]), int(out_hw[1])
-    return _separable(
-        img,
-        _matlab_resize_matrix(in_h, out_h, out_h / in_h, antialiasing),
-        _matlab_resize_matrix(in_w, out_w, out_w / in_w, antialiasing))
+    return _separable(img, _matlab_resize_matrix,
+                      (in_h, out_h, out_h / in_h, antialiasing),
+                      (in_w, out_w, out_w / in_w, antialiasing))
 
 
 def resize_bilinear(x: torch.Tensor, size=None, scale_factor=None,
@@ -141,7 +144,7 @@ def resize_bilinear(x: torch.Tensor, size=None, scale_factor=None,
         size = (int(math.floor(in_h * scale_factor)),
                 int(math.floor(in_w * scale_factor)))
     out_h, out_w = size
-    out = _separable(x.float(),
-                     _bilinear_resize_matrix(in_h, out_h, align_corners),
-                     _bilinear_resize_matrix(in_w, out_w, align_corners))
+    out = _separable(x.float(), _bilinear_resize_matrix,
+                     (in_h, out_h, align_corners),
+                     (in_w, out_w, align_corners))
     return out.to(x.dtype)

@@ -7,7 +7,8 @@ The reference's ``warp`` / ``warpgrid`` / ``warpgrid2``
 displacement in pixels. The reference's two normalisations are kept:
 ``backward_warp`` divides the flow by the *input image's* dims,
 ``warp_grid`` by the *flow's own* dims. Both add the flow to the
-``align_corners=True`` lattice ``linspace(-1, 1, n)``.
+``align_corners=True`` lattice ``linspace(-1, 1, n)``, a shared device
+copy per (h, w, device) from the per-bucket store (``ops/constants.py``).
 """
 
 from __future__ import annotations
@@ -15,15 +16,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from stif_tpu_torch.ops.constants import constant
 from stif_tpu_torch.ops.grid_sample import grid_sample
 
 
-def _base_grid(h: int, w: int, device=None) -> torch.Tensor:
-    """(h, w, 2) grid of ``linspace(-1, 1)`` coords, channel order (x, y)."""
+def _base_grid_np(h: int, w: int) -> np.ndarray:
     gx = np.linspace(-1.0, 1.0, w, dtype=np.float64)
     gy = np.linspace(-1.0, 1.0, h, dtype=np.float64)
     g = np.stack(np.meshgrid(gx, gy, indexing="xy"), axis=-1)
-    return torch.from_numpy(g.astype(np.float32)).to(device)
+    return g.astype(np.float32)
+
+
+def _base_grid(h: int, w: int, device=None) -> torch.Tensor:
+    """(h, w, 2) grid of ``linspace(-1, 1)`` coords, channel order (x, y);
+    shared and read-only."""
+    return constant(_base_grid_np, int(h), int(w), device=device)
 
 
 def warp_grid(flow: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,12 @@ chunked decoder cuts the query axis, which every stage treats row by row:
 
 Queries are padded to a chunk multiple with the last coordinate and cropped
 after. The result equals the unchunked decode: the chunk boundaries cut only
-independent queries. Peak memory is the full HR feature field plus one
-chunk's intermediates.
+independent queries. The query grid and the base lattice come from the
+per-bucket store (``ops/constants.py``), once per (HH, WW) and device; the
+inputs are already on the device, so nothing goes up from the host. Each
+chunk's RGB comes down to the host by its ``.cpu()``: that is the
+decoder's contract, as the JAX package's ``np.asarray`` per chunk is.
+Peak memory is the full HR feature field plus one chunk's intermediates.
 
 With a ``mesh`` whose ``mesh_axis`` is > 1, each step covers ``n_par``
 chunks, chunk j on the axis's device j with a replica of the model there:
@@ -33,7 +37,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from stif_tpu_torch.ops.coords import make_coord
+from stif_tpu_torch.ops.constants import constant
+from stif_tpu_torch.ops.coords import make_coord_cached
 from stif_tpu_torch.parallel.mesh import Mesh
 from stif_tpu_torch.runtime.pipeline import resolve_device
 
@@ -100,11 +105,11 @@ class ChunkedDecoder:
                 torch.as_tensor(feat_t, device=dev0),
                 torch.as_tensor(inp, device=dev0), hr_inp_upsample)
             B = feat.shape[0]
-            coord = make_coord((HH, WW), device=dev0).clamp(-1 + _EPS,
-                                                            1 - _EPS)
+            coord = make_coord_cached((HH, WW), device=dev0).clamp(
+                -1 + _EPS, 1 - _EPS)
             coord = _pad_rows(coord, Qp)
             base_grid = _pad_rows(
-                torch.from_numpy(_base_grid_xy(HH, WW)).to(dev0), Qp)
+                constant(_base_grid_xy, HH, WW, device=dev0), Qp)
             # per device: its replica and the prepared inputs
             parts = [(self._replicas[str(d)], feat.to(d), inp_cat.to(d),
                       hr_inp.to(d), coord.to(d), base_grid.to(d),

@@ -1,9 +1,15 @@
 """Inference pipeline (port of ``stif_tpu/runtime/pipeline.py``): padding,
 sliding frame windows, the window renderer and the batched-pair renderer.
 
-The JAX pipeline buckets padded shapes to reuse compiled programs; PyTorch
-runs eagerly, so here ``bucket`` only sets the padding multiple, which keeps
-the output identical to the JAX pipeline's.
+The JAX pipeline pads shapes to a ``bucket`` multiple and compiles one
+program per bucket, with the forward's shape constants baked in. Here the
+bucket sets the same padding, which keeps the output identical to the JAX
+pipeline's, and one set of constants: the first call of a bucket builds its
+resize matrices, coordinate and warp grids and scale vectors and keeps them
+on the device (``ops/constants.py``), as a JAX trace bakes them in. Later
+calls of the bucket make no host sync inside the model call, so time a
+bucket after one warm-up call. The inputs go up from pinned memory without
+a wait.
 """
 
 from __future__ import annotations
@@ -126,15 +132,18 @@ class InferencePipeline:
         for the previous one's compute to end."""
         x, (h, w) = pad_to_multiple(np.asarray(frames, np.float32), 4,
                                     self.bucket)
-        with torch.inference_mode(), self._device_scope():
-            xt, t = (torch.from_numpy(x[None]),
-                     torch.from_numpy(np.asarray(times, np.float32)))
-            if self.device.type == "cuda":
-                xt, t = (v.pin_memory().to(self.device, non_blocking=True)
-                         for v in (xt, t))
-            else:
-                xt, t = xt.to(self.device), t.to(self.device)
+        xt, t = self._upload(x[None], np.asarray(times, np.float32))
         return xt, t, (h, w)
+
+    def _upload(self, *arrays):
+        """numpy arrays as tensors on the device: on a CUDA device from
+        pinned memory, queued without a wait."""
+        with torch.inference_mode(), self._device_scope():
+            ts = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+            if self.device.type == "cuda":
+                return tuple(v.pin_memory().to(self.device, non_blocking=True)
+                             for v in ts)
+            return tuple(v.to(self.device) for v in ts)
 
     def _launch_staged(self, xt: torch.Tensor, t: torch.Tensor, hw):
         """Queue the compute of a window ``stage`` put on the device and
@@ -215,10 +224,8 @@ class InferencePipeline:
         (N + (N-1) * t_N, 4H, 4W, 3)."""
         x, (h, w) = pad_to_multiple(np.asarray(frames, np.float32), 4,
                                     self.bucket)
+        xt, t = self._upload(x[None], np.asarray(times, np.float32)[None])
         with torch.inference_mode():
-            xt = torch.from_numpy(x[None]).to(self.device)
-            t = torch.as_tensor(np.asarray(times, np.float32)[None],
-                                device=self.device)
             out = self.model(xt, t)[0, :, :h * 4, :w * 4].cpu().numpy()
         return out
 
@@ -235,14 +242,12 @@ class InferencePipeline:
         x, (h, w) = pad_to_multiple(np.asarray(pairs, np.float32), 4,
                                     self.bucket)
         hp, wp = x.shape[2], x.shape[3]
+        xt, t = self._upload(x, np.asarray(times, np.float32))
         with torch.inference_mode():
-            xt = torch.from_numpy(x).to(self.device)
             feat = self.model.gen_feat(xt)
         decoder = ChunkedDecoder(self.model, chunk_size, device=self.device)
-        out = decoder.decode(
-            feat, xt, torch.as_tensor(np.asarray(times, np.float32)),
-            (hp * self.scale, wp * self.scale),
-            hr_inp_upsample=self.test_mode)
+        out = decoder.decode(feat, xt, t, (hp * self.scale, wp * self.scale),
+                             hr_inp_upsample=self.test_mode)
         out = np.moveaxis(out, 0, 1)  # (B, nt, HH, WW, 3)
         return out[:, :, :h * self.scale, :w * self.scale]
 

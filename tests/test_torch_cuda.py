@@ -3,6 +3,8 @@ version, and raises rather than falling back. Marked ``cuda``; skipped
 where there is no GPU. Needs no JAX: on a GPU host without it, run
 ``python -m pytest tests/test_torch_cuda.py -q --noconftest``."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -731,3 +733,83 @@ def test_model_on_the_card_launches_the_dcn_kernels(small_model):
         want = model(x, times)
     assert dcn_forward.launches == before + 42
     assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_constant_store_keys_per_card(cuda):
+    """``cuda``, ``cuda:0`` and ``torch.device('cuda', 0)`` are one key of
+    the per-bucket store while card 0 is current, and the constant lies on
+    card 0; the CPU's copy and another card's are entries of their own."""
+    from stif_tpu_torch.ops.constants import ConstantStore
+    from stif_tpu_torch.ops.coords import _coord_np
+
+    store = ConstantStore()
+    torch.cuda.set_device(0)
+    args = ((4, 6), None, True)
+    a = store.get(_coord_np, *args, device="cuda")
+    assert a.device == torch.device("cuda", 0)
+    assert store.get(_coord_np, *args, device="cuda:0") is a
+    assert store.get(_coord_np, *args, device=torch.device("cuda", 0)) is a
+    c = store.get(_coord_np, *args, device="cpu")
+    assert c.device.type == "cpu" and torch.equal(c, a.cpu())
+    assert not a.is_inference() and not a.requires_grad
+    assert set(store.stats()) == {"cuda:0", "cpu"}
+    assert store.stats()["cuda:0"]["builds"] == 1
+    if torch.cuda.device_count() > 1:
+        b = store.get(_coord_np, *args, device="cuda:1")
+        assert b is not a and b.device == torch.device("cuda", 1)
+        assert store.stats()["cuda:1"]["builds"] == 1
+
+
+@contextlib.contextmanager
+def _sync_error():
+    """CUDA's sync debug mode at "error" inside: a host-blocking call
+    raises."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+def _checked(fn):
+    def call(*args, **kwargs):
+        with _sync_error():
+            return fn(*args, **kwargs)
+    return call
+
+
+@pytest.mark.parametrize("mode", ["window", "local_ensemble", "test_mode",
+                                  "stream", "render_pairs"])
+def test_model_call_makes_no_host_sync_once_warm(small_model, mode):
+    """After one call of a bucket has built its constants, the model call of
+    each serving path makes no host-blocking call (sync debug mode "error"
+    raises on any), and the frames equal the warm-up's bitwise."""
+    from stif_tpu_torch.runtime import InferencePipeline
+
+    build, _, _ = small_model
+    model = build()
+    frames = np.random.default_rng(4).random((2, 8, 12, 3)).astype(
+        np.float32)
+    times = [0.0, 0.4, 1.0]
+    pipe = InferencePipeline(model, bucket=4,
+                             local_ensemble=mode == "local_ensemble",
+                             test_mode=mode == "test_mode")
+    if mode == "stream":
+        warm = pipe.render_window(frames, times)
+        staged = [pipe.stage(frames, times) for _ in range(2)]
+        got = list(pipe.stream(staged, around_launch=_sync_error))
+        for g in got:
+            np.testing.assert_array_equal(g, warm)
+        return
+    if mode == "render_pairs":
+        pairs = np.stack([frames, frames[::-1]])
+        warm = pipe.render_pairs(pairs, times, chunk_size=100)
+        for name in ("gen_feat", "decode_chunk_ab", "decode_chunk_cd"):
+            setattr(model, name, _checked(getattr(model, name)))
+        got = pipe.render_pairs(pairs, times, chunk_size=100)
+    else:
+        warm = pipe.render_window(frames, times)
+        model.forward = _checked(model.forward)
+        got = pipe.render_window(frames, times)
+    np.testing.assert_array_equal(got, warm)
