@@ -30,18 +30,24 @@ Run from the root of a checkout. In order:
    and B 2), summed over a window's 42 calls beside the window's bound;
 4. main path: the deployed full-width model (``rgb_skip`` bicubic) with the
    trained weights ``weights/trained_best_G.pth`` through
-   ``InferencePipeline.render_window`` on a seeded 96x160 LR pair at 8 times:
-   shape and finiteness, kernel launches per window, the same window with
-   the plain SIREN (max|d| <= 1e-3), a small window against the port on the
-   CPU (max|d| <= 1e-3), timings, and one window's device time by kernel;
-   42 ``dcn_forward`` launches per window, the window with the plain DCN
-   (max|d| <= 1e-3), both timed in 5 alternating runs and profiled (with
-   the host-blocking calls of each profiled call); once the warm-up window
-   has built the bucket's constants (``ops/constants.py``), the window's
-   model call and ``stream``'s launches run under CUDA's sync debug mode
-   "error", which raises on any host-blocking call (the same check follows
-   every path named below as "no host sync");
-5. the rest of the serving surface, same model, weights and pair:
+   ``InferencePipeline.render_window`` on a seeded 96x160 LR pair at 8 times,
+   which replays the bucket's captured CUDA graph (``runtime/compiled.py``;
+   the first window runs the forward once eagerly, captures it and replays
+   it): shape and finiteness, kernel launches per window, the capture's
+   warm-up and capture ms and pool bytes, timings, and one replayed
+   window's device time by kernel; then, eagerly (a switch captures anew),
+   the same window with the plain SIREN (max|d| <= 1e-3) and a small
+   window against the port on the CPU (max|d| <= 1e-3); 42 ``dcn_forward``
+   launches per window, the window with the plain DCN (max|d| <= 1e-3),
+   both timed in 5 alternating runs and profiled (with the host-blocking
+   calls of each profiled call); once the warm-up window has built the
+   bucket's constants (``ops/constants.py``) and graph, the window's replay
+   and ``stream``'s launches run under CUDA's sync debug mode "error",
+   which raises on any host-blocking call (the same check follows every
+   path named below as "no host sync"; on an eager path it wraps the model
+   call, on a compiled one the replay);
+5. the rest of the serving surface, same model, weights and pair, eagerly
+   (phase 11 holds each captured path against its eager run):
    a. the kernel against plain at the chunked stages' shapes (8 x 65,536
       rows, separate contiguous fields), at a batch of two (fields broadcast
       over time with period B*Q) and at a padded last chunk;
@@ -116,8 +122,9 @@ Run from the root of a checkout. In order:
       against one device on the main path's window (max|d| <= 1e-5, 12
       launches), and ``default_mesh()`` (size 1) bitwise equal to no mesh;
    d. ``render_sequence`` of 5 frames (4 pairs) double-buffered against
-      ``render_window`` of each pair back to back: bitwise equal, 12
-      launches, ms per pair both ways (3 alternating runs);
+      ``render_window`` of each pair back to back, both replaying the
+      bucket's graph: bitwise equal, 12 launches (and 3 in the capture's
+      warm-up), ms per pair both ways (3 alternating runs);
    e. ``backward_warp``, ``warp_grid_coords`` and ``deform_psroi_pool`` on
       the card against the CPU (<= 1e-5); the native host resize, built
       here with ``g++``, against its plain version (<= 1e-5) and ms per
@@ -125,17 +132,30 @@ Run from the root of a checkout. In order:
 10. the bench (``stif_tpu_torch/runtime/bench.py``, the workload of
    ``scripts/bench_torch.py``) at the deployed config, trained weights and
    ``bench.py``'s sizes: ``bench_b1`` over 4 pairs (3 SIREN and 42
-   ``dcn_forward`` launches per window), ``bench_batched`` over the same
-   pairs in 2 batches of 2, ``full`` and through the ``ChunkedDecoder``
-   (chunk 65,536): each batch's uint8 frames against the b1 frames of its
-   pairs and chunked against full, within 1 LSB; no host sync in the
-   batched model calls (``full`` and ``tsplit``, B = 2); frames/s, peak
-   memory and ``mfu`` (FLOPs from the module shapes over wall time per
-   window over the fp32 peak, in (0, 1]); then ``scripts/bench_torch.py``
-   once as a subprocess (exit 0, its line parses and is logged) and the
-   profile of one streamed window (``runtime/profile.py``; its line is
-   logged), which must hold exactly one host-blocking call: the fetch's
+   ``dcn_forward`` launches per replayed window), ``bench_batched`` over
+   the same pairs in 2 batches of 2, ``full`` (compiled) and through the
+   ``ChunkedDecoder`` (chunk 65,536, eager): each batch's uint8 frames
+   against the b1 frames of its pairs and chunked against full, within 1
+   LSB; no host sync in the eager batched model calls (``full`` and
+   ``tsplit``, B = 2); frames/s, peak memory and ``mfu`` (FLOPs from the
+   module shapes over wall time per window over the fp32 peak, in (0,
+   1]); then ``scripts/bench_torch.py`` once as a subprocess (exit 0, its
+   line parses and is logged) and the profile of one streamed window
+   (``runtime/profile.py``; its line is logged), compiled and then eager,
+   each of which must hold exactly one host-blocking call: the fetch's
    ``cudaEventSynchronize``;
+11. the compiled window (``runtime/compiled.py``), trained weights, the
+   96x160 pairs at 8 times: ``render_window``, the local ensemble, test
+   mode, the self-ensemble (two buckets: the transpose swaps H and W),
+   ``render_sequence`` (2 pairs), ``render_pairs``' ``gen_feat`` (B = 2),
+   ``render_window_tmnet`` (TMNet at full width, seeded, 4 frames x 5
+   times) and the bench's batched ``full`` and ``tsplit`` (B = 2): each
+   against its eager run bitwise (max|d| = 0, on the first call and on a
+   replay), its launches per replay counted, a replay under the sync
+   debug mode "error", each bucket's warm-up and capture ms and pool
+   bytes; then the bench's b1 and batched ``full`` eager and compiled in
+   turns (eager, compiled, compiled, eager): frames/s, device span per b1
+   window, peak memory, the compiled b1 peak within 1.15 x the eager one;
 6. the paths checked for host syncs, the per-bucket constants held on each
    device (builds, hits, bytes), the ``kernels`` JSON line (launches summed
    over every path driven; the DCN kernels' times are of one L1 call), then
@@ -734,8 +754,9 @@ def host_syncs(fn) -> int:
 
 
 def main_path(card: str):
-    """The deployed model through ``InferencePipeline.render_window``.
-    Returns the SIREN launch count of the driven windows."""
+    """The deployed model through ``InferencePipeline.render_window``, which
+    replays the bucket's captured CUDA graph. Returns the SIREN and
+    ``dcn_forward`` launch counts of the counted windows."""
     import torch
     from stif_tpu_torch.convert import load_pth
     from stif_tpu_torch.models import LunaTokis
@@ -748,7 +769,7 @@ def main_path(card: str):
     load_pth(model, str(WEIGHTS))  # strict
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  loaded {WEIGHTS.name} strictly: {n_params} parameters")
-    pipe = InferencePipeline(model)  # CUDA by default
+    pipe = InferencePipeline(model)  # CUDA and compiled by default
     rng = np.random.default_rng(0)
     frames = rng.random((2,) + LR_HW + (3,)).astype(np.float32)
     times = [i / N_TIMES for i in range(N_TIMES)]
@@ -765,11 +786,16 @@ def main_path(card: str):
     launches = siren_apply_fused.launches
     dcn = dcn_counts()
     peak = torch.cuda.max_memory_allocated()
-    n_windows = 4
+    # the first window ran once eagerly (the capture's warm-up), then as
+    # every window since: a replay of the captured graph
+    n_windows = 4 + pipe.programs.captures
     expect = (N_TIMES, LR_HW[0] * SCALE, LR_HW[1] * SCALE, 3)
     if out.shape != expect or not np.isfinite(out).all():
         raise AssertionError(f"bad window: shape {out.shape}, finite "
                              f"{np.isfinite(out).all()}")
+    if pipe.programs.captures != 1:
+        raise AssertionError(f"{pipe.programs.captures} captures of one "
+                             "bucket")
     if launches != 3 * n_windows:
         raise AssertionError(f"{launches} SIREN launches in {n_windows} "
                              "windows, expected 3 per window")
@@ -777,21 +803,29 @@ def main_path(card: str):
         raise AssertionError(f"DCN launches (forward, backward) {dcn} in "
                              f"{n_windows} windows, expected {DCN_PER_PAIR} "
                              "forward launches per window")
+    (stats,) = pipe.programs.stats()
     log(f"  window {out.shape}, finite, SIREN launches {launches} in "
-        f"{n_windows} windows (3 per window), dcn_forward launches "
-        f"{dcn[0]} ({DCN_PER_PAIR} per window), no dcn_backward")
+        f"{n_windows} windows (4 replays of the captured graph and the "
+        f"capture's eager warm-up; 3 per window), dcn_forward launches "
+        f"{dcn[0]} ({DCN_PER_PAIR} per window), no dcn_backward; the "
+        f"capture: warm-up {stats['warmup_ms']:.1f} ms, capture "
+        f"{stats['capture_ms']:.1f} ms, pool "
+        f"{stats['pool_bytes'] / 2**30:.3f} GiB, "
+        f"{stats['held_constants']} constants held [{card}]")
     win = float(np.mean(window_s))
     log(f"  render_window: {1e3 * win:.1f} ms/window "
         f"(runs {', '.join(f'{1e3 * s:.1f}' for s in window_s)} ms), "
         f"{N_TIMES / win:.2f} frames/s, peak memory "
         f"{peak / 2**30:.2f} GiB [{card}]")
-    # the bucket's constants were built by the warm-up window: its model
-    # call, and the stream's launches, now make no host sync
-    with sync_checked("render_window, b1", model):
+    # the bucket's constants and graph were made by the warm-up window: its
+    # replay, and the stream's launches, now make no host sync
+    with sync_checked("render_window's replay, b1", pipe.programs, ("run",)):
         pipe.render_window(frames, times)
     staged = [pipe.stage(frames, times) for _ in range(2)]
     list(pipe.stream(staged, lambda: no_host_sync("stream's launch, b1")))
-    log("  no host sync in render_window's model call or stream's launch")
+    if pipe.programs.captures != 1:
+        raise AssertionError("a warm bucket was captured again")
+    log("  no host sync in render_window's replay or stream's launch")
 
     # encode / decode split on device tensors (CUDA events)
     x = torch.from_numpy(frames[None]).to(pipe.device)
@@ -813,10 +847,11 @@ def main_path(card: str):
     log(f"  split: encode (gen_feat) {np.mean(enc):.1f} ms, decode "
         f"{np.mean(dec):.1f} ms [{card}]")
     device_profile(lambda: pipe.render_window(frames, times), 1e3 * win,
-                   "window", card)
+                   "window (replay)", card)
 
     # the same window with the plain DCN on the card, then both timed in
-    # turns and profiled
+    # turns and profiled: eagerly, since each switch would capture anew
+    pipe = InferencePipeline(model, compiled=False)
     set_dcn_kernel(model, False)
     dcn_forward.launches = 0
     plain = pipe.render_window(frames, times)
@@ -837,7 +872,7 @@ def main_path(card: str):
     for on, what in ((True, "DCN kernels"), (False, "plain DCN")):
         log(f"  window, {what}: median {np.median(walls[on]):.1f} ms (runs "
             f"{', '.join(f'{v:.1f}' for v in walls[on])}), "
-            f"{DCN_ALTERNATIONS} alternating runs [{card}]")
+            f"{DCN_ALTERNATIONS} alternating runs, eager [{card}]")
     for on, what in ((True, "window, DCN kernels"),
                      (False, "window, plain DCN")):
         set_dcn_kernel(model, on)
@@ -868,7 +903,7 @@ def main_path(card: str):
     log(f"  16x16 window, GPU (kernel) vs CPU (plain): max|d| = {err:.3e}")
     if gpu.shape != ref.shape or not err <= WINDOW_BAR:
         raise AssertionError(f"GPU vs CPU window: {err}")
-    return launches
+    return launches, dcn[0]
 
 
 # ----------------------------------------------------------------- phase 5
@@ -1019,7 +1054,8 @@ def slice_phase(card: str, device) -> int:
 
     count = Launches()
     model = deployed_model()
-    pipe = InferencePipeline(model)
+    # eager: phase 11 holds each captured path bitwise against its eager run
+    pipe = InferencePipeline(model, compiled=False)
     rng = np.random.default_rng(0)
     frames = rng.random((2,) + LR_HW + (3,)).astype(np.float32)  # phase 4's
     other = rng.random((2,) + LR_HW + (3,)).astype(np.float32)
@@ -1152,7 +1188,8 @@ def slice_phase(card: str, device) -> int:
     }
     knob_pipes = {}
     for name, (kw, expect, bar) in knobs.items():
-        knob_pipes[name] = (InferencePipeline(deployed_model(**kw)), expect)
+        knob_pipes[name] = (InferencePipeline(deployed_model(**kw),
+                                              compiled=False), expect)
         out = count.run(name, expect, lambda: knob_pipes[name][0]
                         .render_window(frames, times))
         if not np.isfinite(out).all():
@@ -1409,7 +1446,7 @@ def zoo_phase(card: str, device) -> int:
 
     tm_cfg = dict(ZOO_CFG, back_RBs=10)  # TMNet's own depth
     tmnet = seeded(lambda: TMNet(**tm_cfg), 74)
-    pipe = InferencePipeline(tmnet, device=device)
+    pipe = InferencePipeline(tmnet, device=device, compiled=False)  # as [5]
     tm_times = [i / 6 for i in range(1, 6)]
     out = count.run("render_window_tmnet", 0,
                     lambda: pipe.render_window_tmnet(frames, tm_times))
@@ -2017,8 +2054,10 @@ def parallel_phase(card: str, device) -> int:
         return [pipe.render_window(frames[i:i + 2], times)
                 for i in range(pairs)]
 
-    seq = count.run("render_sequence", 3 * pairs,
-                    lambda: pipe.render_sequence(frames, N_TIMES))
+    # the first window captures the bucket: one eager warm-up window more
+    seq = count.run("render_sequence", 3 * (pairs + 1),
+                    lambda: pipe.render_sequence(frames, N_TIMES),
+                    dcn=(DCN_PER_PAIR * (pairs + 1), 0))
     ref = count.run("render_window x 4", 3 * pairs, back_to_back)
     if len(seq) != pairs or not all(np.array_equal(a, b)
                                     for a, b in zip(seq, ref)):
@@ -2130,8 +2169,10 @@ def bench_phase(card: str, device) -> Launches:
     times = bench.times_for(N_TIMES)
     groups = bench.draw_pairs(np.random.default_rng(10), 2, LR_HW, 2)
     pairs = groups.reshape((-1,) + groups.shape[2:])
-    windows = bench.WARMUP + len(pairs)
-    calls = bench.WARMUP + len(groups)  # batched calls, warm-up included
+    # windows and batched calls, the warm-up included, and the eager warm-up
+    # of the one capture each mode makes
+    windows = bench.WARMUP + len(pairs) + 1
+    calls = bench.WARMUP + len(groups) + 1
     HH, WW = LR_HW[0] * SCALE, LR_HW[1] * SCALE
     steps = -(-HH * WW // CHUNK)
 
@@ -2147,6 +2188,9 @@ def bench_phase(card: str, device) -> Launches:
     full = count.run("bench_batched full", 3 * calls,
                      lambda: bench.bench_batched(model, groups, times),
                      dcn=(DCN_PER_PAIR * calls, 0))
+    for mode, r in (("b1", b1), ("batched full", full)):
+        log(f"  {mode}, compiled: {json.dumps(r['programs'])}")
+    calls -= 1  # the chunked mode stays eager
     chunked = count.run(
         f"bench_batched chunk {CHUNK}", 3 * steps * calls,
         lambda: bench.bench_batched(model, groups, times, str(CHUNK)),
@@ -2207,19 +2251,186 @@ def bench_phase(card: str, device) -> Launches:
         raise AssertionError(f"bench_torch.py line: {line[:300]}")
     log(f"  exit 0 in {time.perf_counter() - t0:.1f} s: {line}")
 
-    log("[10] profile of one streamed b1 window (runtime/profile.py)")
-    # the unprofiled stream (2 warm-up and 5 windows), the stage split (3
-    # encodes and 3 decodes) and the capture (a warm-up and 3 windows)
-    n = bench.WARMUP + bench.ITERS + 3 + 4
+    log("[10] profile of one streamed b1 window (runtime/profile.py), "
+        "compiled, then eager")
+    # compiled: the unprofiled stream (2 warm-up and 5 windows, and the
+    # capture's eager warm-up) and the profiled stream (a warm-up window
+    # with its capture, and 3 windows); the stage split (3 encodes and 3
+    # decodes); eager: the same two streams with no capture
+    stream = bench.WARMUP + bench.ITERS
+    n = (stream + 1) + (1 + 1 + 3) + 3 + stream + (1 + 3)
     prof = count.run("profile", 3 * n,
                      lambda: profile.run(device, bench.Knobs()),
                      dcn=(DCN_PER_PAIR * n, 0))
     log(f"  {json.dumps(prof)}")
-    blocking = prof["blocking"]
-    require(f"host-blocking calls in the profiled b1 window "
-            f"({json.dumps(blocking['calls'])}, the host blocked "
-            f"{blocking['host_blocked_ms']} ms)", blocking["per_window"],
-            blocking["per_window"] == 1)
+    if not prof["compiled"] or prof["eager"] is None:
+        raise AssertionError("the profile did not read a compiled and an "
+                             "eager window")
+    for what, rec in (("compiled", prof), ("eager", prof["eager"])):
+        blocking = rec["blocking"]
+        require(f"host-blocking calls in the profiled {what} b1 window "
+                f"({json.dumps(blocking['calls'])}, the host blocked "
+                f"{blocking['host_blocked_ms']} ms; device busy "
+                f"{rec['device_busy_ms']} ms, span {rec['device_span_ms']} "
+                f"ms, idle share {rec['idle_share']})",
+                blocking["per_window"], blocking["per_window"] == 1)
+    return count
+
+
+# ----------------------------------------------------------------- phase 11
+
+COMPILED_BAR = 0.0  # [11]: compiled frames against eager, max|d| (bitwise)
+PEAK_RATIO = 1.15   # [11]: b1 peak memory, compiled over eager
+
+
+def compiled_path(count: Launches, what: str, eager_fn, comp, comp_fn,
+                  expect: int, dcn, card: str) -> None:
+    """One captured path of ``comp`` (an ``InferencePipeline``) against its
+    eager run ``eager_fn``: the first compiled call (the warm-up, the
+    capture of each new bucket, a replay), a replay whose launches are
+    counted (``expect`` SIREN, ``dcn``), a replay under ``no_host_sync``;
+    every output bitwise the eager one; each bucket's capture logged."""
+    want = np.asarray(eager_fn())
+    before = comp.programs.captures
+    known = {st["key"] for st in comp.programs.stats()}
+    first = np.asarray(comp_fn())
+    captured = comp.programs.captures
+    if captured == before:
+        raise AssertionError(f"{what}: the first call captured nothing")
+    again = np.asarray(count.run(f"{what}, replay", expect, comp_fn, dcn=dcn))
+    with sync_checked(f"{what}, replay", comp.programs, ("run",)):
+        comp_fn()
+    if comp.programs.captures != captured:
+        raise AssertionError(f"{what}: a warm bucket was captured again")
+    d = max(max_abs(first, want), max_abs(again, want))
+    require(f"{what}: compiled (first call and replay) vs eager, max|d|", d,
+            d <= COMPILED_BAR)
+    for st in [st for st in comp.programs.stats() if st["key"] not in known]:
+        log(f"    {st['key']}: warm-up {st['warmup_ms']:.1f} ms, capture "
+            f"{st['capture_ms']:.1f} ms, pool {st['pool_bytes'] / 2**30:.3f}"
+            f" GiB, {st['held_constants']} constants held, launches a "
+            f"replay {json.dumps(st['launches'])} [{card}]")
+
+
+def compiled_phase(card: str, device) -> Launches:
+    """Phase 11: every captured path against its eager run, then the bench's
+    modes eager and compiled in turns. Returns the ``Launches`` of every
+    path driven."""
+    import torch
+    from stif_tpu_torch.models import TMNet
+    from stif_tpu_torch.runtime import InferencePipeline, ProgramCache, bench
+
+    count = Launches()
+    torch.cuda.empty_cache()
+    model = deployed_model()
+    rng = np.random.default_rng(11)
+    frames = rng.random((3,) + LR_HW + (3,)).astype(np.float32)
+    times = [i / N_TIMES for i in range(N_TIMES)]
+    HH, WW = LR_HW[0] * SCALE, LR_HW[1] * SCALE
+    steps = -(-HH * WW // CHUNK)
+    one = (DCN_PER_PAIR, 0)
+
+    log(f"[11] compiled window: each captured path against eager, LR "
+        f"{LR_HW[0]}x{LR_HW[1]}, {N_TIMES} times, trained weights")
+    for what, kw, expect, dcn in (
+            ("render_window, b1", {}, 3, one),
+            ("local ensemble", {"local_ensemble": True}, 12, one),
+            ("test mode", {"test_mode": True}, 3, one),
+            ("self-ensemble (two buckets)", {"self_ensemble": True}, 24,
+             (8 * DCN_PER_PAIR, 0))):
+        eager = InferencePipeline(model, compiled=False, **kw)
+        comp = InferencePipeline(model, **kw)
+        compiled_path(count, what,
+                      lambda: eager.render_window(frames[:2], times), comp,
+                      lambda: comp.render_window(frames[:2], times), expect,
+                      dcn, card)
+        del eager, comp
+        torch.cuda.empty_cache()
+
+    eager = InferencePipeline(model, compiled=False)
+    comp = InferencePipeline(model)
+    compiled_path(
+        count, "render_sequence, 2 pairs",
+        lambda: np.stack(eager.render_sequence(frames, N_TIMES)), comp,
+        lambda: np.stack(comp.render_sequence(frames, N_TIMES)), 6,
+        (2 * DCN_PER_PAIR, 0), card)
+    pairs = np.stack([frames[:2], frames[1:]])
+    compiled_path(count, "render_pairs' gen_feat, B = 2",
+                  lambda: eager.render_pairs(pairs, times), comp,
+                  lambda: comp.render_pairs(pairs, times), 3 * steps, one,
+                  card)
+    del eager, comp
+    torch.cuda.empty_cache()
+
+    tmnet = seeded(lambda: TMNet(**dict(ZOO_CFG, back_RBs=10)), 74)
+    tm_frames = rng.random((4,) + LR_HW + (3,)).astype(np.float32)
+    tm_times = [i / 6 for i in range(1, 6)]
+    eager = InferencePipeline(tmnet, compiled=False)
+    comp = InferencePipeline(tmnet)
+    compiled_path(count, "render_window_tmnet, 4 frames x 5 times",
+                  lambda: eager.render_window_tmnet(tm_frames, tm_times),
+                  comp, lambda: comp.render_window_tmnet(tm_frames, tm_times),
+                  0, "some", card)
+    del eager, comp, tmnet
+    torch.cuda.empty_cache()
+
+    groups = bench.draw_pairs(rng, 2, LR_HW, 2)
+    for mode, per_call in (("full", 3), ("tsplit", 6)):
+        what = f"bench_batched {mode}, B = 2"
+        want = bench.bench_batched(model, groups, times, mode, warmup=0,
+                                   compiled=False)["outs"]
+        cache = ProgramCache(device)
+        first = bench.bench_batched(model, groups, times, mode, warmup=1,
+                                    compiled=cache)["outs"]
+        calls = 1 + len(groups)  # the warm-up call and the groups
+
+        def replays():
+            with sync_checked(f"{what}, replay", cache, ("run",)):
+                return bench.bench_batched(model, groups, times, mode,
+                                           warmup=1, compiled=cache)["outs"]
+        again = count.run(f"{what}, replay", per_call * calls, replays,
+                          dcn=(DCN_PER_PAIR * calls, 0))
+        if cache.captures != 1:
+            raise AssertionError(f"{what}: {cache.captures} captures")
+        d = max(lsb_diff(a, b) for a, b in zip(first + again, want + want))
+        require(f"{what}: compiled (first call and replays) vs eager uint8, "
+                "max|d| in LSB", d, d == 0)
+        (st,) = cache.stats()
+        log(f"    {st['key']}: warm-up {st['warmup_ms']:.1f} ms, capture "
+            f"{st['capture_ms']:.1f} ms, pool {st['pool_bytes'] / 2**30:.3f}"
+            f" GiB [{card}]")
+        del cache
+        torch.cuda.empty_cache()
+
+    pairs = groups.reshape((-1,) + groups.shape[2:])
+    log(f"[11] bench b1 ({len(pairs)} pairs) and batched full ({len(groups)}"
+        " x 2), eager and compiled in turns (eager, compiled, compiled, "
+        "eager)")
+    runs = {}
+    for compiled in (False, None, None, False):
+        for mode in ("b1", "batched"):
+            n = (bench.WARMUP + (len(pairs) if mode == "b1" else len(groups))
+                 + (compiled is None))  # the capture's eager warm-up
+            fn = ((lambda: bench.bench_b1(model, pairs, times,
+                                          compiled=compiled))
+                  if mode == "b1" else
+                  (lambda: bench.bench_batched(model, groups, times,
+                                               compiled=compiled)))
+            r = count.run(f"bench {mode}, compiled={compiled}", 3 * n, fn,
+                          dcn=(DCN_PER_PAIR * n, 0))
+            runs.setdefault((mode, compiled is None), []).append(r)
+    for (mode, comp), rs in sorted(runs.items()):
+        fps = ", ".join(f"{r['fps']:.3f}" for r in rs)
+        span = [ms for r in rs for ms in (r.get("window_device_ms") or [])]
+        log(f"  {mode}, {'compiled' if comp else 'eager'}: frames/s {fps}; "
+            f"peak {max(r['peak_gib'] for r in rs):.3f} GiB"
+            + (f"; device span per window, median {np.median(span):.3f} ms"
+               if span else "") + f" [{card}]")
+    peaks = {c: max(r["peak_gib"] for r in runs[("b1", c)])
+             for c in (False, True)}
+    require(f"b1 peak, compiled {peaks[True]:.3f} GiB over eager "
+            f"{peaks[False]:.3f} GiB", peaks[True] / peaks[False],
+            peaks[True] <= PEAK_RATIO * peaks[False])
     return count
 
 
@@ -2302,8 +2513,8 @@ def main() -> int:
         return 0
 
     log("[4] main path: InferencePipeline.render_window, trained weights")
-    launches = main_path(card)
-    dcn_launches = [DCN_PER_PAIR * 4, 0]  # main_path's four counted windows
+    launches, dcn_main = main_path(card)
+    dcn_launches = [dcn_main, 0]  # main_path's counted windows
 
     def add(count):
         dcn_launches[0] += count.dcn[0]
@@ -2327,6 +2538,10 @@ def main() -> int:
     t10 = time.perf_counter()
     launches += add(bench_phase(card, device))
     log(f"    phase 10: {time.perf_counter() - t10:.1f} s")
+
+    t11 = time.perf_counter()
+    launches += add(compiled_phase(card, device))
+    log(f"    phase 11: {time.perf_counter() - t11:.1f} s")
 
     kernels = {"kernels": [{
         "name": "siren_fused",

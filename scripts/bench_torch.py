@@ -4,7 +4,7 @@
 ``LunaTokis`` and its trained weights, streamed at batch 1
 (double-buffered) and in batches of ``BENCH_PAIR_BATCH`` pairs.
 
-    python scripts/bench_torch.py [--repeats 3] [--weights PATH | none]
+    python scripts/bench_torch.py [--repeats 3] [--weights PATH | none] [--eager]
 
 Prints ONE JSON line: ``{"metric": "frames_per_sec", "value": N, "unit":
 "frames/s", "vs_baseline": N, ...}`` with every field of ``bench.py``'s
@@ -13,7 +13,10 @@ peak, SIREN and DCN launches per b1 window, peak memory per mode, and the
 per-run values of ``--repeats`` alternating b1 / batched runs (each value
 is their median). The knobs are ``bench.py``'s ``BENCH_*`` variables; the
 port's defaults run fp32 through the fused SIREN kernel
-(``stif_tpu_torch/runtime/bench.py``).
+(``stif_tpu_torch/runtime/bench.py``). On the card b1 and the ``full`` /
+``tsplit`` batched modes replay one captured CUDA graph per bucket, and the
+line gives their captures, replays, warm-up and capture ms and pool bytes;
+``--eager`` runs them op by op instead.
 
 Runs on CUDA unless ``--device cpu`` is given, and raises without a GPU.
 Any failure, in any mode, ends the run with a non-zero exit code and no
@@ -36,10 +39,12 @@ def main(argv=None) -> dict:
 
     ap = argparse.ArgumentParser()
     bench.add_workload_args(ap)
+    bench.add_eager_arg(ap)
     ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     rec = bench.run(device, bench.Knobs.from_env(), repeats=args.repeats,
+                    compiled=False if args.eager else None,
                     **bench.workload_kwargs(args))
     print(json.dumps(rec), flush=True)
     return rec

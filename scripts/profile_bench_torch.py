@@ -2,7 +2,7 @@
 """Where the bench's b1 window spends its time, on the card (counterpart of
 ``tools/profile_bench.py``).
 
-    python scripts/profile_bench_torch.py [--out PROFILE.json]
+    python scripts/profile_bench_torch.py [--out PROFILE.json] [--eager]
 
 Streams the bench's b1 workload (``stif_tpu_torch/runtime/bench.py``: LR
 96x160 pairs, 8 times, x4, the deployed model and trained weights, the
@@ -12,8 +12,11 @@ prints ONE JSON line (``stif_tpu_torch/runtime/profile.py``): the window's
 device time by stage (the PCD alignment, the ConvLSTM and its PCDs, the
 residual trunks, ``decode``), the top device ops, the idle share of an
 unprofiled window, the longest idle gaps with what the host was doing in
-each, and the host-blocking calls per window. ``--out`` also writes the
-line to a file.
+each, and the host-blocking calls per window. On the card the captured
+window replays the bucket's CUDA graph, whose replay runs no Python forward
+hook: the stage ranges come from a second, eager window (``eager`` in the
+line). ``--eager`` profiles the eager window alone. ``--out`` also writes
+the line to a file.
 
 Runs on CUDA unless ``--device cpu`` is given (the device fields are then
 None), and raises without a GPU.
@@ -33,12 +36,14 @@ def main(argv=None) -> dict:
 
     ap = argparse.ArgumentParser()
     bench.add_workload_args(ap)
+    bench.add_eager_arg(ap)
     ap.add_argument("--trace", default=str(profile.TRACE),
                     help="where the Chrome trace goes")
     ap.add_argument("--out", default=None, help="also write the line here")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     rec = profile.run(device, bench.Knobs.from_env(), trace=args.trace,
+                      compiled=False if args.eager else None,
                       **bench.workload_kwargs(args))
     line = json.dumps(rec)
     if args.out:

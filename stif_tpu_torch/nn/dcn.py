@@ -11,6 +11,7 @@ import torch
 import torch.nn as nn
 
 from stif_tpu_torch.nn.blocks import Conv
+from stif_tpu_torch.ops import capture
 from stif_tpu_torch.ops.deform_conv import (deform_conv2d,
                                             deform_conv2d_plain,
                                             split_offset_mask)
@@ -59,7 +60,9 @@ def set_dcn_kernel(model: nn.Module, on: bool) -> None:
     """Run every ``DCNSep`` of ``model`` through the DCN op
     (``deform_conv2d``: the kernels on the card), or, with ``on`` False,
     through its plain PyTorch form differentiated by autograd: the yardstick
-    the kernels are held against on the card."""
+    the kernels are held against on the card. Captured programs are stale
+    after it (``ops/capture.py``)."""
     for m in model.modules():
         if isinstance(m, DCNSep):
             m.use_kernel = on
+    capture.bump_route()

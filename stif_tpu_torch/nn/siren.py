@@ -16,6 +16,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
+from stif_tpu_torch.ops import capture
 from stif_tpu_torch.ops.precision import round_to
 from stif_tpu_torch.ops.siren_fused import (
     is_dtensor,
@@ -142,7 +143,8 @@ class Siren(nn.Module):
 def set_fused(model: nn.Module, fused: bool) -> None:
     """Turn the fused kernel on or off in every ``Siren`` of ``model``; a
     net with ``split_first`` stays off, since the kernel has no split-K
-    form."""
+    form. Captured programs are stale after it (``ops/capture.py``)."""
     for m in model.modules():
         if isinstance(m, Siren):
             m.fused = fused and not m.split_first
+    capture.bump_route()

@@ -23,6 +23,11 @@ The rules the store keeps:
 - Callers share the tensor and never write into it.
 - The values are the numpy builder's, uploaded once, bit for bit.
 - A failed build raises; nothing falls back to a per-call copy.
+- While a CUDA graph is captured (``runtime/compiled.py``), every tensor
+  ``get`` returns is handed to the capture's scope (``ops/capture.py``), and
+  the captured program keeps a reference to it: the graph reads it by
+  address, so the table's bound below must not free it while the program
+  lives.
 
 The table is a least-recently-used one, bounded by ``MAX_BYTES`` per device
 (the newest constant is kept even if it alone is larger). One bucket of the
@@ -41,6 +46,8 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+
+from stif_tpu_torch.ops import capture
 
 MAX_BYTES = 1 << 30  # per device
 
@@ -79,6 +86,7 @@ class ConstantStore:
             if hit is not None:
                 table.move_to_end(key)
                 stats["hits"] += 1
+                capture.hold(hit)
                 return hit
             with torch.inference_mode(False), torch.no_grad():
                 value = torch.as_tensor(builder(*args)).to(
@@ -90,6 +98,7 @@ class ConstantStore:
                 _, old = table.popitem(last=False)
                 stats["bytes"] -= old.nbytes
             stats["entries"] = len(table)
+            capture.hold(value)
             return value
 
     def tensors(self):

@@ -53,7 +53,7 @@ from typing import Optional, Tuple, Union
 import torch
 from torch.autograd.function import once_differentiable
 
-from stif_tpu_torch.ops import cuda_build
+from stif_tpu_torch.ops import capture, cuda_build
 from stif_tpu_torch.ops.precision import round_to
 
 IntPair = Union[int, Tuple[int, int]]
@@ -75,7 +75,7 @@ def set_dcn_impl(impl: str, shift_bound: int = None, window=None) -> None:
     ``"dense"`` or ``"window"``. ``shift_bound`` overrides every auto call
     site's bound (check it with ``dcn_shift_stats`` first); ``window`` sets
     the JAX package's (Wy, Wx) tap-cluster window, which changes nothing
-    here."""
+    here. Captured programs are stale after it (``ops/capture.py``)."""
     global _DEFAULT_IMPL, _DEFAULT_SHIFT_BOUND, _DEFAULT_WINDOW
     if impl not in IMPLS:
         raise ValueError(f"set_dcn_impl: impl must be one of {IMPLS}, "
@@ -84,6 +84,7 @@ def set_dcn_impl(impl: str, shift_bound: int = None, window=None) -> None:
     _DEFAULT_SHIFT_BOUND = shift_bound
     if window is not None:
         _DEFAULT_WINDOW = (int(window[0]), int(window[1]))
+    capture.bump_route()
 
 
 def split_offset_mask(conv_out: torch.Tensor, deformable_groups: int,
@@ -516,7 +517,7 @@ def dcn_forward(x, offset, mask, weight, bias=None, stride: IntPair = 1,
              weight.data_ptr(),
              None if bias is None else bias.data_ptr(), out.data_ptr(),
              geo.meta(offset, mask, Cout), _META, *_flat(plan)))
-    dcn_forward.launches += 1
+    capture.launched(dcn_forward)
     return out
 
 
@@ -559,7 +560,7 @@ def dcn_backward(grad_out, x, offset, mask, weight, stride: IntPair = 1,
              goff.data_ptr(),
              gmask.data_ptr(), ws.data_ptr(), gw.data_ptr(),
              geo.meta(offset, mask, Cout), _META, *_flat(plan)))
-    dcn_backward.launches += 1
+    capture.launched(dcn_backward)
     return gx, goff, gmask, gw
 
 

@@ -31,7 +31,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from stif_tpu_torch.ops import cuda_build
+from stif_tpu_torch.ops import capture, cuda_build
 
 _MAX_FIELDS = 8
 _MAX_LAYERS = 8
@@ -285,7 +285,7 @@ def siren_apply_fused(x, weights: Sequence[torch.Tensor],
                  cdims, cplan, len(flat), out.data_ptr(), q, omega0, stream)
     if err != 0:
         raise RuntimeError(f"siren_fused kernel launch failed: CUDA error {err}")
-    siren_apply_fused.launches += 1
+    capture.launched(siren_apply_fused)
     return out.reshape(*lead, dims[-1])
 
 

@@ -1,6 +1,7 @@
 """Serving runtime of the port (counterpart of ``stif_tpu.runtime``)."""
 
 from stif_tpu_torch.runtime.chunked import ChunkedDecoder
+from stif_tpu_torch.runtime.compiled import Program, ProgramCache
 from stif_tpu_torch.runtime.eval import (
     EvalResult,
     eval_adobe_4x,
@@ -20,6 +21,8 @@ __all__ = [
     "ChunkedDecoder",
     "EvalResult",
     "InferencePipeline",
+    "Program",
+    "ProgramCache",
     "eval_adobe_4x",
     "eval_adobe_liif4x",
     "eval_adobe_tmnet",

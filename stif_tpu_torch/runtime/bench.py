@@ -17,6 +17,14 @@ Two streaming modes, the faster one the headline:
   the times each (``tsplit``, the JAX bench's mode for a TPU compile limit,
   kept with the same semantics), or the ``ChunkedDecoder`` at a chunk size.
 
+On a CUDA device both modes replay one captured CUDA graph per bucket
+(``runtime/compiled.py``), as the JAX bench runs one jitted program: b1
+through the pipeline's programs, ``full`` and ``tsplit`` through a program
+cache of their own; the chunked mode stays eager. ``compiled=False`` runs
+them eagerly. The warm-up calls make the captures, so the clock sees
+replays only; each mode returns its programs' captures, replays, warm-up
+and capture ms and pool bytes.
+
 The knobs are read from the same ``BENCH_*`` variables as the JAX bench
 (``Knobs.from_env``). Three defaults differ on purpose: gathers, the SIREN
 nets and ``encode_imnet`` run fp32 and unsplit, because ``mlp_dtype`` and
@@ -188,24 +196,30 @@ def draw_pairs(rng: np.random.Generator, n: int, lr_hw,
     return rng.random((n, batch, 2) + tuple(lr_hw) + (3,)).astype(np.float32)
 
 
+def _programs(cache) -> Optional[List[dict]]:
+    return None if cache is None else cache.stats()
+
+
 def bench_b1(model, pairs: np.ndarray, times: Sequence[float],
-             warmup: int = WARMUP) -> dict:
+             warmup: int = WARMUP, compiled=None) -> dict:
     """Stream ``pairs`` (n, 2, H, W, 3) at batch 1, double-buffered, after
-    ``warmup`` windows of the first pair. Returns ``fps``, ``window_s``
-    (wall per window), ``window_device_ms`` (each window's span on the
-    compute stream by CUDA events; None on the CPU), ``outs`` (the uint8
-    frames of each pair, (nt, 4H, 4W, 3)), ``siren_launches`` and
-    ``dcn_launches`` per window, and ``peak_gib``."""
+    ``warmup`` windows of the first pair (``compiled`` as
+    ``InferencePipeline`` takes it). Returns ``fps``, ``window_s`` (wall
+    per window), ``window_device_ms`` (each window's span on the compute
+    stream by CUDA events; None on the CPU), ``outs`` (the uint8 frames of
+    each pair, (nt, 4H, 4W, 3)), ``siren_launches`` and ``dcn_launches``
+    per streamed window, ``peak_gib``, and ``programs`` (the compiled
+    buckets' stats; None when eager)."""
     device = next(model.parameters()).device
     # bucket 1: the pair is padded only to the model's multiple of 4
     pipe = InferencePipeline(Quantized(model), scale=SCALE, bucket=1,
-                             device=device)
+                             device=device, compiled=compiled)
     cuda = device.type == "cuda"
     staged = [pipe.stage(p, times) for p in pairs]
     _peak_reset(device)
-    n0 = _counts()
     for _ in range(warmup):
         list(pipe.stream(staged[:1]))
+    n0 = _counts()
     events = []
 
     @contextlib.contextmanager
@@ -221,7 +235,7 @@ def bench_b1(model, pairs: np.ndarray, times: Sequence[float],
     outs = list(pipe.stream(staged, timed if cuda else None))
     window_s = (time.perf_counter() - t0) / len(staged)
     n1 = _counts()
-    windows = warmup + len(staged)
+    windows = len(staged)
     return {
         "fps": len(times) / window_s,
         "window_s": window_s,
@@ -231,6 +245,7 @@ def bench_b1(model, pairs: np.ndarray, times: Sequence[float],
         "siren_launches": (n1[0] - n0[0]) / windows,
         "dcn_launches": (n1[1] - n0[1]) / windows,
         "peak_gib": _peak_gib(device),
+        "programs": _programs(pipe.programs),
     }
 
 
@@ -262,27 +277,42 @@ def stage_split(model, pair: np.ndarray, times: Sequence[float]) -> dict:
 
 
 def bench_batched(model, groups: np.ndarray, times: Sequence[float],
-                  mode: str = "full", warmup: int = WARMUP) -> dict:
+                  mode: str = "full", warmup: int = WARMUP,
+                  compiled=None) -> dict:
     """Stream ``groups`` (n, B, 2, H, W, 3) of B pairs per call after
     ``warmup`` calls on the first group; ``mode`` is ``full``, ``tsplit``
-    or a ``ChunkedDecoder`` chunk size. The groups are staged on the device
-    before the clock; the clock stops when the device has finished the last
-    group (``bench.py:187-259``). Returns ``fps``, ``outs`` (uint8 (nt, B,
-    4H, 4W, 3) per group, on the host) and ``peak_gib``."""
+    or a ``ChunkedDecoder`` chunk size; ``full`` and ``tsplit`` run through
+    a program cache as ``InferencePipeline`` takes ``compiled``. The groups
+    are staged on the device before the clock; the clock stops when the
+    device has finished the last group (``bench.py:187-259``). Returns
+    ``fps``, ``outs`` (uint8 (nt, B, 4H, 4W, 3) per group, on the host),
+    ``peak_gib`` and ``programs`` (None when eager)."""
     from stif_tpu_torch.runtime.chunked import ChunkedDecoder
+    from stif_tpu_torch.runtime.compiled import program_cache
 
     device = next(model.parameters()).device
     t = torch.tensor(list(times), dtype=torch.float32, device=device)
     hh, ww = groups.shape[3] * SCALE, groups.shape[4] * SCALE
     half = len(times) // 2
-    if mode == "full":
+    programs = None
+    if mode in ("full", "tsplit"):
+        if mode == "full":
+            def step(xb, tt):
+                return quantize(model(xb, tt))
+        else:
+            def step(xb, tt):
+                feat = model.gen_feat(xb)
+                return torch.cat(
+                    [quantize(model.decode(feat, xb, tt[:half])),
+                     quantize(model.decode(feat, xb, tt[half:]))])
+        programs = program_cache(device, compiled)
+
         def run(xb):
-            return quantize(model(xb, t))
-    elif mode == "tsplit":
-        def run(xb):
-            feat = model.gen_feat(xb)
-            return torch.cat([quantize(model.decode(feat, xb, t[:half])),
-                              quantize(model.decode(feat, xb, t[half:]))])
+            if programs is None:
+                return step(xb, t)
+            # a window of its own: the next replay writes over the output
+            return programs.run(f"batched {mode}", step, (xb, t),
+                                model).clone()
     else:
         decoder = ChunkedDecoder(model, chunk_size=int(mode), device=device)
 
@@ -303,7 +333,7 @@ def bench_batched(model, groups: np.ndarray, times: Sequence[float],
         peak = _peak_gib(device)
         outs = [o.cpu().numpy() for o in outs]
     return {"fps": groups.shape[1] * len(times) / dt, "outs": outs,
-            "peak_gib": peak}
+            "peak_gib": peak, "programs": _programs(programs)}
 
 
 # ------------------------------------------------------------------ FLOPs
@@ -473,8 +503,10 @@ def record(*, device, knobs: Knobs, weights, lr_hw, n_times: int,
     """The bench line: every key of ``bench.py``'s line under its name
     (``metric`` ``frames_per_sec``, ``value`` the larger of the b1 and
     batched medians), then the card, the FLOP peak ``mfu`` is held
-    against, launches per b1 window, peak memory per mode and the per-run
-    values. Device numbers are None on the CPU."""
+    against, launches per b1 window, peak memory per mode, the per-run
+    values, and whether the modes ran as compiled programs with each
+    mode's programs (first run) and captures (all runs). Device numbers are
+    None on the CPU."""
     from stif_tpu_torch.ops import deform_conv
     from stif_tpu_torch.utils.provenance import stamp
 
@@ -539,6 +571,13 @@ def record(*, device, knobs: Knobs, weights, lr_hw, n_times: int,
         "window_device_ms": ({"median": round(float(np.median(device_ms)), 3),
                               "runs": [round(v, 3) for v in device_ms]}
                              if device_ms else None),
+        "compiled": b1_runs[0]["programs"] is not None,
+        "programs": {mode: runs[0]["programs"] if runs else None
+                     for mode, runs in (("b1", b1_runs),
+                                        ("batched", batched_runs))},
+        "captures": {mode: sum(len(r["programs"] or []) for r in runs)
+                     for mode, runs in (("b1", b1_runs),
+                                        ("batched", batched_runs))},
     }
 
 
@@ -561,6 +600,13 @@ def add_workload_args(ap) -> None:
     ap.add_argument("--back-rbs", type=int, default=DEPLOYED["back_RBs"])
 
 
+def add_eager_arg(ap) -> None:
+    """``--eager``: the bench's and the profile's ``compiled=False``."""
+    ap.add_argument("--eager", action="store_true",
+                    help="run the forward op by op on the card instead of "
+                         "replaying one captured CUDA graph per bucket")
+
+
 def workload_kwargs(args) -> dict:
     """``run``'s keyword arguments from ``add_workload_args``' flags."""
     return dict(weights=None if args.weights == "none" else args.weights,
@@ -572,10 +618,11 @@ def workload_kwargs(args) -> dict:
 
 def run(device, knobs: Knobs, weights=WEIGHTS, lr_hw=(LR_H, LR_W),
         n_times: int = N_TIMES, iters: int = ITERS, repeats: int = 3,
-        seed: int = 0, arch: Optional[dict] = None) -> dict:
+        seed: int = 0, arch: Optional[dict] = None, compiled=None) -> dict:
     """The whole bench: build, then ``repeats`` alternations of the b1 and
-    batched modes (each with its own warm-up), the stage split once, and
-    the record. Raises on any failure; nothing is caught."""
+    batched modes (each with its own warm-up and, when ``compiled``, its
+    own captures), the stage split once, and the record. Raises on any
+    failure; nothing is caught."""
     arch = dict(DEPLOYED, **(arch or {}))
     model = build(device, weights, knobs, **arch)
     rng = np.random.default_rng(seed)
@@ -585,10 +632,11 @@ def run(device, knobs: Knobs, weights=WEIGHTS, lr_hw=(LR_H, LR_W),
                         knobs.pair_batch)
     b1_runs, batched_runs = [], []
     for _ in range(repeats):
-        b1_runs.append(bench_b1(model, pairs, times))
+        b1_runs.append(bench_b1(model, pairs, times, compiled=compiled))
         if knobs.pair_batch > 1:
             batched_runs.append(bench_batched(model, groups, times,
-                                              knobs.chunk))
+                                              knobs.chunk,
+                                              compiled=compiled))
     stages = stage_split(model, pairs[0], times)
     out_hw = (lr_hw[0] * SCALE, lr_hw[1] * SCALE)
     flops = window_flops(model, 1, n_times, out_hw, lr_hw)

@@ -1,0 +1,252 @@
+"""Per-bucket compiled programs: the counterpart of the JAX pipeline's
+``_cache`` of ``jax.jit`` programs (``stif_tpu/runtime/pipeline.py:95-109``
+per (shape, nt, out_size), ``:164-168`` for TMNet, ``:185-189`` for
+``gen_feat``).
+
+A JAX window is one dispatch of one compiled program. Here a ``Program`` is
+one captured ``torch.cuda.CUDAGraph`` of a callable at one input shape. The
+first call of a key runs the callable eagerly once: that warm-up builds the
+bucket's constants (``ops/constants.py``), the cuDNN and cuBLAS handles and
+workspaces and the kernels' shared-memory attributes. The call then captures
+the callable on the cache's capture stream, instantiates the graph and
+replays it, so its output is bit for bit that of every later replay. A later
+call copies its inputs into the program's static inputs on the current
+stream and replays the graph: one ``cudaGraphLaunch`` in place of the
+forward's ~2,800 launches from Python.
+
+The key is the JAX key and the model's route:
+
+- the callable's name, the model, every input's shape and dtype, and the
+  static arguments (``out_size``, ``test``, ``local_ensemble``);
+- the route: the ``data_ptr``, shape and dtype of every parameter and
+  buffer of the model, and the route epoch of ``ops/capture.py``. A graph
+  holds the kernels and pointers of its capture: ``set_fused``,
+  ``set_dcn_kernel`` and ``set_dcn_impl`` bump the epoch, and a model moved
+  with ``to()`` has new pointers, so either makes a new key (and the stale
+  programs are dropped). Weights loaded in place (``load_state_dict``,
+  ``copy_``, an optimizer step) keep their addresses: the next replay reads
+  the new values, with no new capture.
+
+What a program keeps, and what its caller must keep to:
+
+- its static inputs and output, the store tensors its forward read (the
+  store's bound must not free them), and the kernel launches it holds,
+  which each replay adds to the wrappers' counts (a capture adds none);
+- the output is overwritten by the next replay of any program of the same
+  cache: its programs share one memory pool (``torch.cuda.graph_pool_handle``),
+  so one bucket's output may lie where another's intermediates go. A caller
+  reads or copies the output on the current stream before it replays
+  another program, and replays only on that one stream;
+- capture and replay run under ``torch.cuda.device(cache.device)``.
+
+The capture runs in ``thread_local`` capture-error mode: a call that is
+illegal during a capture (a host sync, a ``cudaMalloc`` outside the pool)
+made by the capturing thread fails the capture, as ``global`` would, but
+other threads (a loader pinning its batches, another pipeline's copies) may
+go on. ``relaxed`` would let the capturing thread itself sync unseen.
+
+A capture or a replay that fails raises; nothing falls back to the eager
+callable. The CPU has no graphs: ``program_cache`` gives None there unless a
+caller hands over a cache of its own with another capture step (the CPU
+tests replay the callable into one static output, as a graph does).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from stif_tpu_torch.ops import capture as capture_scope
+
+CAPTURE_ERROR_MODE = "thread_local"
+
+# one capture stream per card, shared by every cache: PyTorch keeps a cuBLAS
+# workspace for each stream it sees, for the life of the process, so a
+# stream per pipeline would leave one behind with every pipeline
+_capture_streams: Dict[int, torch.cuda.Stream] = {}
+
+# a capture step: (callable, static inputs, cache) -> (replay, static output)
+CaptureStep = Callable[[Callable, Tuple[torch.Tensor, ...], "ProgramCache"],
+                       Tuple[Callable[[], None], torch.Tensor]]
+
+
+def route(model: torch.nn.Module) -> tuple:
+    """What a graph of ``model``'s forward reads by address or was built
+    for: every parameter's and buffer's pointer, shape and dtype, and the
+    route epoch."""
+    tensors = list(model.parameters()) + list(model.buffers())
+    return (capture_scope.route_epoch(),
+            tuple((v.data_ptr(), tuple(v.shape), v.dtype) for v in tensors))
+
+
+def cuda_graph(fn: Callable, inputs: Tuple[torch.Tensor, ...],
+               cache: "ProgramCache"):
+    """The capture step on a CUDA device: ``fn(*inputs)`` captured into a
+    ``torch.cuda.CUDAGraph`` on the cache's capture stream, in its pool."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=cache.pool, stream=cache.stream,
+                          capture_error_mode=CAPTURE_ERROR_MODE):
+        out = fn(*inputs)
+    return graph.replay, out
+
+
+class Program:
+    """One captured callable at one key (see the module docstring)."""
+
+    def __init__(self, label: str, inputs: Tuple[torch.Tensor, ...],
+                 output: torch.Tensor, replay: Callable[[], None],
+                 recording: capture_scope.Recording, warmup_ms: float,
+                 capture_ms: float, pool_bytes: Optional[int]):
+        self.label = label
+        self.inputs = inputs
+        self.output = output
+        self._replay = replay
+        self.held = list(recording.tensors.values())
+        self.launches = recording.launches
+        self.warmup_ms = warmup_ms
+        self.capture_ms = capture_ms
+        self.pool_bytes = pool_bytes
+        self.replays = 0
+
+    def __call__(self, *args: torch.Tensor) -> torch.Tensor:
+        """Copy ``args`` into the static inputs, replay, count the launches;
+        the static output (overwritten by the next replay of the cache)."""
+        for static, arg in zip(self.inputs, args):
+            static.copy_(arg)
+        self._replay()
+        self.replays += 1
+        for wrapper, n in self.launches.items():
+            wrapper.launches += n
+        return self.output
+
+    def stats(self) -> dict:
+        return {"key": self.label, "replays": self.replays,
+                "warmup_ms": round(self.warmup_ms, 3),
+                "capture_ms": round(self.capture_ms, 3),
+                "pool_bytes": self.pool_bytes,
+                "held_constants": len(self.held),
+                "launches": {w.__name__: n for w, n in self.launches.items()}}
+
+
+class ProgramCache:
+    """The programs of one pipeline on one device, keyed as the module
+    docstring says, sharing one memory pool and one capture stream.
+    ``capture`` is the capture step; ``cuda_graph`` by default, which needs
+    a CUDA device."""
+
+    def __init__(self, device, capture: Optional[CaptureStep] = None):
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        if capture is None:
+            if not self.cuda:
+                raise ValueError(f"CUDA graphs need a CUDA device, not "
+                                 f"{self.device}; run eagerly there")
+            capture = cuda_graph
+        self.capture = capture
+        self.programs: Dict[tuple, Program] = {}
+        self.captures = 0
+        self._pool = None
+
+    @property
+    def pool(self):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    @property
+    def stream(self) -> Optional[torch.cuda.Stream]:
+        """The capture stream of this cache's card (None on the CPU)."""
+        if not self.cuda:
+            return None
+        index = (self.device.index if self.device.index is not None
+                 else torch.cuda.current_device())
+        if index not in _capture_streams:
+            _capture_streams[index] = torch.cuda.Stream(index)
+        return _capture_streams[index]
+
+    def _scope(self):
+        return (torch.cuda.device(self.device) if self.cuda
+                else contextlib.nullcontext())
+
+    def run(self, name: str, fn: Callable, inputs: Sequence[torch.Tensor],
+            model: torch.nn.Module, static: Optional[dict] = None
+            ) -> torch.Tensor:
+        """``fn(*inputs, **static)``, through the program of its key: a
+        replay, or on the key's first call a warm-up, a capture and a
+        replay. Returns the program's static output (read or copy it before
+        the next call of this cache)."""
+        static = dict(static or {})
+        key = (name, model,
+               tuple((tuple(v.shape), v.dtype) for v in inputs),
+               tuple(sorted(static.items())), route(model))
+        with self._scope():
+            program = self.programs.get(key)
+            if program is None:
+                self._drop_stale()
+                label = (f"{name} {[tuple(v.shape) for v in inputs]}"
+                         + "".join(f" {k}={v}" for k, v in sorted(
+                             static.items())))
+                program = self._compile(
+                    label, lambda *xs: fn(*xs, **static), tuple(inputs))
+                self.programs[key] = program
+            return program(*inputs)
+
+    def _drop_stale(self) -> None:
+        """Forget the programs whose model's route changed since their
+        capture: no key can reach them again."""
+        for key in [k for k in self.programs if k[-1] != route(k[1])]:
+            del self.programs[key]
+
+    def _compile(self, label: str, fn: Callable,
+                 inputs: Tuple[torch.Tensor, ...]) -> Program:
+        statics = tuple(torch.empty_like(v) for v in inputs)
+        for s, v in zip(statics, inputs):
+            s.copy_(v)
+        t0 = time.perf_counter()
+        if self.cuda:
+            # the warm-up on the capture stream: the workspaces it makes
+            # are those of the stream the capture runs on
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self.stream):
+                fn(*statics)
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
+        else:
+            fn(*statics)
+        t1 = time.perf_counter()
+        with capture_scope.scope() as recording:
+            replay, output = self.capture(fn, statics, self)
+        if not isinstance(output, torch.Tensor):
+            raise TypeError(f"a compiled program returns one tensor, got "
+                            f"{type(output).__name__}")
+        t2 = time.perf_counter()
+        pool_bytes = (torch.cuda.memory_reserved(self.device) - reserved
+                      if self.cuda else None)
+        self.captures += 1
+        return Program(label, statics, output, replay, recording,
+                       1e3 * (t1 - t0), 1e3 * (t2 - t1), pool_bytes)
+
+    def stats(self) -> List[dict]:
+        """One line per live program: its key, replays, the first call's
+        warm-up and capture ms, the pool bytes its capture added, the store
+        tensors it holds and its launches per replay."""
+        return [p.stats() for p in self.programs.values()]
+
+
+def program_cache(device, compiled=None) -> Optional[ProgramCache]:
+    """The program cache of a pipeline on ``device``: ``compiled`` None
+    gives graphs on a CUDA device and None (eager) on another, False None,
+    True a cache (ValueError off a CUDA device), and a ``ProgramCache``
+    itself."""
+    if isinstance(compiled, ProgramCache):
+        return compiled
+    dev = torch.device(device)
+    if compiled is None:
+        compiled = dev.type == "cuda"
+    if not compiled:
+        return None
+    return ProgramCache(dev)

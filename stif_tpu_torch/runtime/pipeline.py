@@ -4,12 +4,15 @@ sliding frame windows, the window renderer and the batched-pair renderer.
 The JAX pipeline pads shapes to a ``bucket`` multiple and compiles one
 program per bucket, with the forward's shape constants baked in. Here the
 bucket sets the same padding, which keeps the output identical to the JAX
-pipeline's, and one set of constants: the first call of a bucket builds its
-resize matrices, coordinate and warp grids and scale vectors and keeps them
-on the device (``ops/constants.py``), as a JAX trace bakes them in. Later
-calls of the bucket make no host sync inside the model call, so time a
-bucket after one warm-up call. The inputs go up from pinned memory without
-a wait.
+pipeline's, one set of constants, and on a CUDA device one compiled program.
+The first call of a bucket builds its resize matrices, coordinate and warp
+grids and scale vectors and keeps them on the device (``ops/constants.py``),
+as a JAX trace bakes them in; it then captures the forward as a CUDA graph
+(``runtime/compiled.py``), and every later call of the bucket replays that
+graph: one launch from the host in place of the forward's ~2,800. So time a
+bucket after one warm-up call. ``compiled=False`` runs the forward eagerly
+on the card (the stage ranges of a profile need it), and the CPU, which has
+no graphs, always does. The inputs go up from pinned memory without a wait.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from typing import Callable, ContextManager, Iterable, Iterator, List, \
 
 import numpy as np
 import torch
+
+from stif_tpu_torch.runtime.compiled import program_cache
 
 
 def resolve_device(device=None) -> torch.device:
@@ -85,12 +90,22 @@ class InferencePipeline:
     unless ``device`` says otherwise). ``render_window`` passes ``test=`` and
     ``local_ensemble=`` to the model, so it serves ``LunaTokis`` only, as in
     the JAX package; ``render_window_tmnet`` serves a ``TMNet``, and the
-    other variants are called directly."""
+    other variants are called directly.
+
+    ``compiled``: None replays one captured CUDA graph per bucket on a CUDA
+    device and runs eagerly on the CPU; False runs eagerly; True asks for
+    graphs and raises off a CUDA device; a ``ProgramCache`` is used as it is.
+    The window's forward, TMNet's and ``render_pairs``' ``gen_feat`` go
+    through it; the ``ChunkedDecoder``'s decode stays eager."""
 
     def __init__(self, model: torch.nn.Module, scale: int = 4,
                  bucket: int = 16, device=None, test_mode: bool = False,
-                 local_ensemble: bool = False, self_ensemble: bool = False):
+                 local_ensemble: bool = False, self_ensemble: bool = False,
+                 compiled=None):
         self.device = resolve_device(device)
+        # the per-bucket programs, one memory pool: replayed in order on
+        # this pipeline's compute stream, one window at a time
+        self.programs = program_cache(self.device, compiled)
         self.model = model.to(self.device).eval()
         self.scale = scale
         self.bucket = bucket
@@ -119,6 +134,14 @@ class InferencePipeline:
         host (``stage``, then ``_launch_staged``); ``_fetch`` waits for
         it."""
         return self._launch_staged(*self.stage(frames, times))
+
+    def _run(self, name: str, fn, inputs, **static) -> torch.Tensor:
+        """``fn(*inputs, **static)``: the replay of its bucket's program
+        when compiled (the program's output, overwritten by its next
+        replay), else an eager call."""
+        if self.programs is None:
+            return fn(*inputs, **static)
+        return self.programs.run(name, fn, inputs, self.model, static)
 
     def _device_scope(self):
         return (torch.cuda.device(self.device) if self.device.type == "cuda"
@@ -152,15 +175,18 @@ class InferencePipeline:
         ends, into pinned host memory, so that the next window's compute
         (queued on the compute stream meanwhile) overlaps it. The events
         and streams are those of ``self.device``, whichever card is
-        current."""
+        current. The frames are first copied, on the compute stream, into a
+        tensor of the window's own: a compiled program's next replay writes
+        over its output while the side stream may still read this window's,
+        and ``record_stream`` does not cover a graph's memory."""
         hp, wp = xt.shape[2], xt.shape[3]
         cuda = self.device.type == "cuda"
         with torch.inference_mode(), self._device_scope():
-            out = self.model(xt, t, out_size=(hp * self.scale,
-                                              wp * self.scale),
-                             test=self.test_mode,
-                             local_ensemble=self.local_ensemble)
-            out = out[:, 0].contiguous()
+            out = self._run("window", self.model, (xt, t),
+                            out_size=(hp * self.scale, wp * self.scale),
+                            test=self.test_mode,
+                            local_ensemble=self.local_ensemble)
+            out = out[:, 0].clone()
             if not cuda:
                 return out, None, hw
             computed = torch.cuda.Event()
@@ -226,8 +252,8 @@ class InferencePipeline:
                                     self.bucket)
         xt, t = self._upload(x[None], np.asarray(times, np.float32)[None])
         with torch.inference_mode():
-            out = self.model(xt, t)[0, :, :h * 4, :w * 4].cpu().numpy()
-        return out
+            out = self._run("tmnet", self.model, (xt, t))
+            return out[0, :, :h * 4, :w * 4].cpu().numpy()
 
     def render_pairs(self, pairs: np.ndarray, times: Sequence[float],
                      chunk_size: int = 65536) -> np.ndarray:
@@ -236,7 +262,9 @@ class InferencePipeline:
 
         The encoder runs once at batch B; the decoder goes through the
         ``ChunkedDecoder``, so the B * nt query set stays memory-bounded at
-        any frame size. Neither ensemble applies here, as in the JAX package."""
+        any frame size. Neither ensemble applies here, as in the JAX package.
+        ``gen_feat`` runs as its bucket's program when compiled; the decoder
+        reads its output before the pipeline replays anything else."""
         from stif_tpu_torch.runtime.chunked import ChunkedDecoder
 
         x, (h, w) = pad_to_multiple(np.asarray(pairs, np.float32), 4,
@@ -244,7 +272,7 @@ class InferencePipeline:
         hp, wp = x.shape[2], x.shape[3]
         xt, t = self._upload(x, np.asarray(times, np.float32))
         with torch.inference_mode():
-            feat = self.model.gen_feat(xt)
+            feat = self._run("gen_feat", self.model.gen_feat, (xt,))
         decoder = ChunkedDecoder(self.model, chunk_size, device=self.device)
         out = decoder.decode(feat, xt, t, (hp * self.scale, wp * self.scale),
                              hr_inp_upsample=self.test_mode)

@@ -18,8 +18,10 @@ and ``decode`` from hooks set here, not in the model.
 - the top device ops by time, with their counts;
 - the idle gaps between the window's device intervals, longest first, with
   what the host was doing: the share of the gap inside any host op or
-  runtime call, the longest stretch in none (Python between ops) and the
-  call that ends it, and the op that launched the work that ends the gap;
+  runtime call, the CUDA API call that fills most of it (a replayed
+  graph's ``cudaGraphLaunch``, say), the longest stretch in none
+  (Python between ops) and the call that ends it, and the op that launched
+  the work that ends the gap;
   and the idle time inside the window's device span by gap length;
 - the host-blocking calls: ``cudaStreamSynchronize``,
   ``cudaDeviceSynchronize``, ``cudaEventSynchronize`` and the synchronous
@@ -29,6 +31,14 @@ and ``decode`` from hooks set here, not in the model.
 The idle share is held against the wall time of an unprofiled window of the
 same stream. On the CPU the trace has no device events: the device fields
 are None and only the ranges' host time is read.
+
+On a CUDA device the pipeline replays the bucket's captured graph
+(``runtime/compiled.py``) unless ``compiled`` is False. A replay runs no
+Python forward, so no hook opens a stage range: ``run`` reads the compiled
+window (device busy, idle share, gaps, blocking calls; every launch outside
+the ranges) and then an eager window of the same pairs (``eager`` in the
+line, with its own unprofiled wall time), whose ranges say where the time
+goes by stage.
 """
 
 from __future__ import annotations
@@ -216,11 +226,16 @@ def analyze(events, wall_ms: Optional[float] = None, top: int = 12,
         after = min((e for e in calls if e["ts"] >= py1),
                     key=lambda e: e["ts"], default=None)
         by = _innermost(ops, l["ts"])
+        cuda_call = max(
+            (e for e in calls if e["cat"] in LAUNCH_CATS
+             and e["ts"] < g1 and _end(e) > g0),
+            key=lambda e: min(_end(e), g1) - max(e["ts"], g0), default=None)
         rec["gaps"].append({
             "ms": round(length / 1e3, 3),
             "at_ms": round((g0 - w0) / 1e3, 3),
             "range": inside["name"] if inside else None,
             "host_op_share": round(sum(b - a for a, b in covered) / length, 3),
+            "longest_cuda_call": cuda_call["name"][:80] if cuda_call else None,
             "longest_python_ms": round((py1 - py0) / 1e3, 3),
             "call_after_python": after["name"][:80] if after else None,
             "next": nxt["name"][:80],
@@ -228,14 +243,15 @@ def analyze(events, wall_ms: Optional[float] = None, top: int = 12,
     return rec
 
 
-def capture(model, pairs, times, trace=TRACE) -> list:
-    """Capture one streamed window (see the module docstring) and return
-    the Chrome trace's events; the trace is written to ``trace``."""
+def capture(model, pairs, times, trace=TRACE, compiled=None) -> list:
+    """Capture one streamed window (see the module docstring; ``compiled``
+    as ``InferencePipeline`` takes it) and return the Chrome trace's
+    events; the trace is written to ``trace``."""
     device = next(model.parameters()).device
     pipe = InferencePipeline(bench.Quantized(model), scale=bench.SCALE,
-                             bucket=1, device=device)
+                             bucket=1, device=device, compiled=compiled)
     staged = [pipe.stage(p, times) for p in pairs[:3]]
-    list(pipe.stream(staged[:1]))  # warm
+    list(pipe.stream(staged[:1]))  # warm: constants, and the capture
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
@@ -255,18 +271,32 @@ def capture(model, pairs, times, trace=TRACE) -> list:
 def run(device, knobs: bench.Knobs, weights=bench.WEIGHTS,
         lr_hw=(bench.LR_H, bench.LR_W), n_times: int = bench.N_TIMES,
         iters: int = bench.ITERS, seed: int = 0, arch=None,
-        trace=TRACE) -> dict:
-    """The profile line: the unprofiled b1 stream (wall per window), the
-    stage split, then one captured window, ``analyze``d."""
+        trace=TRACE, compiled=None) -> dict:
+    """The profile line: the unprofiled b1 stream (wall per window) and one
+    captured window, ``analyze``d, then the stage split; when that window
+    was a compiled one, the same stream and window eagerly (``eager``)."""
     arch = dict(bench.DEPLOYED, **(arch or {}))
     model = bench.build(device, weights, knobs, **arch)
     times = bench.times_for(n_times)
     pairs = bench.draw_pairs(np.random.default_rng(seed), max(3, iters),
                              lr_hw)[:, 0]
-    b1 = bench.bench_b1(model, pairs, times)
+    cuda = device.type == "cuda"
+
+    def reading(mode, path):
+        b1 = bench.bench_b1(model, pairs, times, compiled=mode)
+        wall_ms = 1e3 * b1["window_s"]
+        events = capture(model, pairs, times, path, mode)
+        return b1, wall_ms, analyze(events, wall_ms if cuda else None)
+
+    b1, wall_ms, window = reading(compiled, trace)
     stages = bench.stage_split(model, pairs[0], times)
-    events = capture(model, pairs, times, trace)
-    wall_ms = 1e3 * b1["window_s"]
+    eager = None
+    if b1["programs"] is not None:
+        path = Path(trace)
+        e_b1, e_wall, e_window = reading(
+            False, path.with_name(f"{path.stem}_eager{path.suffix}"))
+        eager = {"b1_fps": round(e_b1["fps"], 3),
+                 "wall_ms": round(e_wall, 3), **e_window}
     return {
         "tool": "profile_bench_torch",
         "device": bench.device_info(device),
@@ -275,9 +305,12 @@ def run(device, knobs: bench.Knobs, weights=bench.WEIGHTS,
         "weights": str(weights) if weights else "seeded (nn/init.py, seed 0)",
         "gather_dtype": knobs.gather_dtype, "mlp_dtype": knobs.mlp_dtype,
         "encode_splitk": knobs.encode_splitk,
+        "compiled": b1["programs"] is not None,
+        "programs": b1["programs"],
         "b1_fps": round(b1["fps"], 3),
         "wall_ms": round(wall_ms, 3),
         **{k: round(v, 4) for k, v in stages.items()},
-        **analyze(events, wall_ms if device.type == "cuda" else None),
+        **window,
+        "eager": eager,
         "trace": str(trace),
     }

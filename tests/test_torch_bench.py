@@ -362,14 +362,16 @@ def test_analyze_a_trace_with_device_events():
     # 320-610: Python only until aten::mm starts at 600
     assert rec["gaps"][0] == {"ms": 0.29, "at_ms": 0.32, "range": "gen_feat",
                               "host_op_share": 0.034,
+                              "longest_cuda_call": "cudaLaunchKernel",
                               "longest_python_ms": 0.28,
                               "call_after_python": "aten::mm", "next": "k_mm",
                               "launched_by": "aten::mm"}
     # 209-303: in the copy and its sync until 260, a launch at 300-302
     g = rec["gaps"][1]
     assert (g["host_op_share"], g["longest_python_ms"],
-            g["call_after_python"], g["launched_by"]) == (
-        0.564, 0.04, "cudaLaunchKernel", None)
+            g["call_after_python"], g["launched_by"],
+            g["longest_cuda_call"]) == (
+        0.564, 0.04, "cudaLaunchKernel", None, "cudaStreamSynchronize")
     b = rec["blocking"]
     assert b["calls"] == {"cudaStreamSynchronize": 1,
                           "cudaDeviceSynchronize": 0,

@@ -480,7 +480,8 @@ def test_mesh_chunked_decoder_on_the_card(small_model):
 
 def test_render_sequence_on_the_card(small_model):
     """The double-buffered sequence (copies on a side stream into pinned
-    memory) equals the back-to-back windows bitwise, 3 launches per pair."""
+    memory) equals the back-to-back windows bitwise, 3 launches per pair,
+    and 3 in the eager warm-up of the bucket's capture."""
     from stif_tpu_torch.runtime import InferencePipeline
 
     build, _, _ = small_model
@@ -489,7 +490,8 @@ def test_render_sequence_on_the_card(small_model):
         np.float32)
     before = siren_apply_fused.launches
     got = pipe.render_sequence(frames, n_times=3)
-    assert siren_apply_fused.launches == before + 12
+    assert pipe.programs.captures == 1
+    assert siren_apply_fused.launches == before + 12 + 3
     for i, out in enumerate(got):
         want = pipe.render_window(frames[i:i + 2], [0.0, 1 / 3, 2 / 3])
         np.testing.assert_array_equal(out, want)
@@ -502,9 +504,11 @@ def _cards(n):
 
 
 def test_pipeline_on_a_card_that_is_not_current(small_model):
-    """A pipeline on ``cuda:1`` while ``cuda:0`` is current: its events and
-    copy stream follow its own card, so the double-buffered frames equal
-    the back-to-back ones bitwise and those of a pipeline on ``cuda:0``."""
+    """A pipeline on ``cuda:1`` while ``cuda:0`` is current: its events,
+    copy stream, captures and replays follow its own card, so the
+    double-buffered frames equal the back-to-back ones and an eager
+    pipeline's on that card bitwise, and those of a pipeline on
+    ``cuda:0``."""
     from stif_tpu_torch.runtime import InferencePipeline
 
     cards = _cards(2)
@@ -515,11 +519,16 @@ def test_pipeline_on_a_card_that_is_not_current(small_model):
     times = [0.0, 1 / 3, 2 / 3]
     ref = InferencePipeline(build(), bucket=4, device=cards[0])
     pipe = InferencePipeline(build(), bucket=4, device=cards[1])
+    eager = InferencePipeline(pipe.model, bucket=4, device=cards[1],
+                              compiled=False)
     got = pipe.render_sequence(frames, n_times=3)
     assert torch.cuda.current_device() == 0
+    assert pipe.programs.captures == 1
     for i, out in enumerate(got):
         np.testing.assert_array_equal(
             out, pipe.render_window(frames[i:i + 2], times))
+        np.testing.assert_array_equal(
+            out, eager.render_window(frames[i:i + 2], times))
         want = ref.render_window(frames[i:i + 2], times)
         assert np.abs(out - want).max() <= 1e-5
 
@@ -782,9 +791,11 @@ def _checked(fn):
 @pytest.mark.parametrize("mode", ["window", "local_ensemble", "test_mode",
                                   "stream", "render_pairs"])
 def test_model_call_makes_no_host_sync_once_warm(small_model, mode):
-    """After one call of a bucket has built its constants, the model call of
-    each serving path makes no host-blocking call (sync debug mode "error"
-    raises on any), and the frames equal the warm-up's bitwise."""
+    """After one call of a bucket has built its constants, the eager model
+    call of each serving path makes no host-blocking call (sync debug mode
+    "error" raises on any), and the frames equal the warm-up's bitwise.
+    (A compiled pipeline runs no model call on a replay:
+    ``test_compiled_replay_makes_no_host_sync`` checks the replays.)"""
     from stif_tpu_torch.runtime import InferencePipeline
 
     build, _, _ = small_model
@@ -792,7 +803,7 @@ def test_model_call_makes_no_host_sync_once_warm(small_model, mode):
     frames = np.random.default_rng(4).random((2, 8, 12, 3)).astype(
         np.float32)
     times = [0.0, 0.4, 1.0]
-    pipe = InferencePipeline(model, bucket=4,
+    pipe = InferencePipeline(model, bucket=4, compiled=False,
                              local_ensemble=mode == "local_ensemble",
                              test_mode=mode == "test_mode")
     if mode == "stream":
@@ -813,3 +824,136 @@ def test_model_call_makes_no_host_sync_once_warm(small_model, mode):
         model.forward = _checked(model.forward)
         got = pipe.render_window(frames, times)
     np.testing.assert_array_equal(got, warm)
+
+
+# ------------------------------------------------------ compiled programs
+
+COMPILED_PATHS = ["window", "local_ensemble", "test_mode", "self_ensemble",
+                  "sequence", "render_pairs", "tmnet"]
+
+
+def _small_tmnet(cuda):
+    from stif_tpu_torch.models import TMNet
+
+    torch.manual_seed(0)
+    model = TMNet(nf=16, groups=4, front_RBs=1, back_RBs=1)
+    for p in model.parameters():  # the offset convs start at zero
+        if p.abs().max() == 0:
+            torch.nn.init.uniform_(p, -0.05, 0.05)
+    return model.to(cuda).eval()
+
+
+def _render(pipe, path, frames, times):
+    """The frames of ``path`` through ``pipe``, as one array."""
+    if path == "sequence":
+        return np.stack(pipe.render_sequence(frames, n_times=len(times)))
+    if path == "render_pairs":
+        pairs = np.stack([frames[:2], frames[1:3]])
+        return pipe.render_pairs(pairs, times, chunk_size=200)
+    if path == "tmnet":
+        return pipe.render_window_tmnet(frames, times)
+    return pipe.render_window(frames[:2], times)
+
+
+def _compiled_and_eager(small_model, path):
+    from stif_tpu_torch.runtime import InferencePipeline
+
+    build, _, _ = small_model
+    model = (_small_tmnet(torch.device("cuda")) if path == "tmnet"
+             else build())
+    kw = {k: True for k in ("local_ensemble", "test_mode", "self_ensemble")
+          if k == path}
+    return (InferencePipeline(model, bucket=4, **kw),
+            InferencePipeline(model, bucket=4, compiled=False, **kw))
+
+
+@pytest.mark.parametrize("path", COMPILED_PATHS)
+def test_compiled_equals_eager_on_the_card(small_model, path):
+    """Each captured path replays to the eager frames bit for bit (max|d| =
+    0): the first call (warm-up, capture, replay) and a replay; the
+    self-ensemble's transpose makes a second bucket in the same pool."""
+    comp, eager = _compiled_and_eager(small_model, path)
+    frames = np.random.default_rng(5).random((3, 8, 12, 3)).astype(
+        np.float32)
+    times = [0.0, 0.4, 1.0]
+    want = _render(eager, path, frames, times)
+    first = _render(comp, path, frames, times)
+    again = _render(comp, path, frames, times)
+    assert np.abs(first - want).max() == 0
+    assert np.abs(again - want).max() == 0
+    assert comp.programs.captures == (2 if path == "self_ensemble" else 1)
+    for stats in comp.programs.stats():
+        assert stats["replays"] >= 2 and stats["pool_bytes"] >= 0
+
+
+@pytest.mark.parametrize("path", COMPILED_PATHS)
+def test_compiled_replay_makes_no_host_sync(small_model, path):
+    """Once its bucket is captured, a path's replays (the static inputs'
+    copies, the graph launch) make no host-blocking call (sync debug mode
+    "error" raises on any), and no new capture."""
+    comp, _ = _compiled_and_eager(small_model, path)
+    frames = np.random.default_rng(6).random((3, 8, 12, 3)).astype(
+        np.float32)
+    times = [0.0, 0.4, 1.0]
+    want = _render(comp, path, frames, times)
+    comp.programs.run = _checked(comp.programs.run)
+    got = _render(comp, path, frames, times)
+    assert comp.programs.captures == (2 if path == "self_ensemble" else 1)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_compiled_launches_count_replays(small_model):
+    """A window's capture adds no launch; its eager warm-up and each replay
+    add 3 SIREN and 42 ``dcn_forward`` launches, the program's tally."""
+    from stif_tpu_torch.ops import dcn_forward
+    from stif_tpu_torch.runtime import InferencePipeline
+
+    build, _, _ = small_model
+    pipe = InferencePipeline(build(), bucket=4)
+    frames = np.random.default_rng(7).random((2, 8, 12, 3)).astype(
+        np.float32)
+
+    def counts():
+        return siren_apply_fused.launches, dcn_forward.launches
+
+    c0 = counts()
+    pipe.render_window(frames, [0.0, 0.5])
+    (program,) = pipe.programs.programs.values()
+    assert program.launches == {siren_apply_fused: 3, dcn_forward: 42}
+    assert counts() == (c0[0] + 6, c0[1] + 84)
+    for k in (1, 2):
+        pipe.render_window(frames, [0.0, 0.5])
+        assert counts() == (c0[0] + 6 + 3 * k, c0[1] + 84 + 42 * k)
+
+
+def test_compiled_sees_a_weight_reload(small_model):
+    """Weights loaded in place after the capture keep their addresses: the
+    next replay renders with them (the eager frames of the new weights,
+    bitwise), with no new capture; a switch of the SIREN kernel captures
+    anew."""
+    from stif_tpu_torch.nn.siren import set_fused
+    from stif_tpu_torch.runtime import InferencePipeline
+
+    build, _, _ = small_model
+    model = build()
+    pipe = InferencePipeline(model, bucket=4)
+    eager = InferencePipeline(model, bucket=4, compiled=False)
+    frames = np.random.default_rng(8).random((2, 8, 12, 3)).astype(
+        np.float32)
+    times = [0.0, 0.5]
+    before = pipe.render_window(frames, times)
+    gen = torch.Generator().manual_seed(9)
+    state = {k: v * (0.9 + 0.2 * torch.rand(v.shape, generator=gen)).to(
+        v.device) for k, v in model.state_dict().items()}
+    model.load_state_dict(state)
+    got = pipe.render_window(frames, times)
+    assert pipe.programs.captures == 1
+    assert np.abs(got - eager.render_window(frames, times)).max() == 0
+    assert np.abs(got - before).max() > 1e-3
+    set_fused(model, False)
+    try:
+        plain = pipe.render_window(frames, times)
+        assert pipe.programs.captures == 2
+        assert np.abs(plain - eager.render_window(frames, times)).max() == 0
+    finally:
+        set_fused(model, True)
