@@ -47,7 +47,7 @@ Run from the root of a checkout. In order:
    path named below as "no host sync"; on an eager path it wraps the model
    call, on a compiled one the replay);
 5. the rest of the serving surface, same model, weights and pair, eagerly
-   (phase 11 holds each captured path against its eager run):
+   (phases 11 and 12 hold each captured path against its eager run):
    a. the kernel against plain at the chunked stages' shapes (8 x 65,536
       rows, separate contiguous fields), at a batch of two (fields broadcast
       over time with period B*Q) and at a padded last chunk;
@@ -55,7 +55,7 @@ Run from the root of a checkout. In order:
       features (max|d| <= 1e-4, 12 launches);
    c. ``render_pairs`` of two different pairs against ``render_window`` of
       each (max|d| <= 1e-3); no host sync in its ``gen_feat`` and chunk
-      steps, and one host sync a chunk step in all (its RGB to the host);
+      steps, and one host sync in all (the decoder's RGB to the host);
    d. local-ensemble and test-mode windows (shape, finite, 12 and 3
       launches, the plain-SIREN window and a 16x16 window on the CPU within
       1e-3, no host sync), and a 64x64 ``decode_zoom`` window against the
@@ -120,7 +120,8 @@ Run from the root of a checkout. In order:
       then resumed without ``--parallel`` to 8: both exit 0;
    c. ``ChunkedDecoder`` over a mesh of two handles of ``cuda:0`` (n_par 2)
       against one device on the main path's window (max|d| <= 1e-5, 12
-      launches), and ``default_mesh()`` (size 1) bitwise equal to no mesh;
+      launches), and ``default_mesh()`` (size 1) bitwise equal to no mesh,
+      all eager;
    d. ``render_sequence`` of 5 frames (4 pairs) double-buffered against
       ``render_window`` of each pair back to back, both replaying the
       bucket's graph: bitwise equal, 12 launches (and 3 in the capture's
@@ -147,7 +148,8 @@ Run from the root of a checkout. In order:
 11. the compiled window (``runtime/compiled.py``), trained weights, the
    96x160 pairs at 8 times: ``render_window``, the local ensemble, test
    mode, the self-ensemble (two buckets: the transpose swaps H and W),
-   ``render_sequence`` (2 pairs), ``render_pairs``' ``gen_feat`` (B = 2),
+   ``render_sequence`` (2 pairs), ``render_pairs`` (B = 2; its decoder's
+   programs are phase 12's),
    ``render_window_tmnet`` (TMNet at full width, seeded, 4 frames x 5
    times) and the bench's batched ``full`` and ``tsplit`` (B = 2): each
    against its eager run bitwise (max|d| = 0, on the first call and on a
@@ -156,6 +158,22 @@ Run from the root of a checkout. In order:
    bytes; then the bench's b1 and batched ``full`` eager and compiled in
    turns (eager, compiled, compiled, eager): frames/s, device span per b1
    window, peak memory, the compiled b1 peak within 1.15 x the eager one;
+12. the compiled ``ChunkedDecoder`` (its prep, A+B, skip and C+D passes
+   captured once per chunk shape and replayed per chunk), trained weights:
+   ``decode`` on the main path's window (LR 96x160, 8 times, chunk 65,536:
+   4 steps, the last one padded) at B 1, at B 2 with per-sample times and
+   in test mode, ``render_pairs`` of two pairs (compiled pipeline against
+   eager) and the 1080p window (LR 270x480, 32 steps): each against its
+   eager run bitwise (max|d| = 0) on its first call and on a replay, 3
+   SIREN launches per chunk step per replay, no capture on a second call,
+   the replays under the sync debug mode "error" and exactly one blocking
+   call per decode, each program's warm-up and capture ms and pool bytes,
+   the decoder's held bytes, the compiled peak within 1.15 x the eager one
+   (B 1 and 1080p), ms eager and compiled in turns; at B 2 the parts of a
+   call of the bench's chunked mode (``gen_feat``, the decode, the host's
+   quantisation) and the decode's device profile, both ways; then the
+   bench's chunked mode eager and compiled in turns (eager, compiled,
+   compiled, eager): frames/s, peak memory, uint8 frames equal;
 6. the paths checked for host syncs, the per-bucket constants held on each
    device (builds, hits, bytes), the ``kernels`` JSON line (launches summed
    over every path driven; the DCN kernels' times are of one L1 call), then
@@ -737,7 +755,8 @@ def sync_checked(what: str, obj, methods=("forward",)):
 
 def host_syncs(fn) -> int:
     """The host-blocking calls of ``fn()``, counted by CUDA's sync debug
-    mode at "warn" (one warning each)."""
+    mode at "warn" (one warning each; not the mode's own notice, given once
+    a process, that it is a prototype)."""
     import warnings
 
     import torch
@@ -750,7 +769,8 @@ def host_syncs(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode(prev)
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sum("synchroniz" in str(w.message)
+               and "prototype" not in str(w.message) for w in caught)
 
 
 def main_path(card: str):
@@ -1075,7 +1095,7 @@ def slice_phase(card: str, device) -> int:
                          lambda: model.decode(feat, x, t).cpu().numpy(),
                          dcn=None)
     steps = -(-HH * WW // CHUNK)
-    decoder = ChunkedDecoder(model, CHUNK)
+    decoder = ChunkedDecoder(model, CHUNK, compiled=False)  # as in [5c]-[5f]
     chunked = count.run("ChunkedDecoder.decode", 3 * steps,
                         lambda: decoder.decode(feat, x, t, (HH, WW)),
                         dcn=None)
@@ -1115,11 +1135,11 @@ def slice_phase(card: str, device) -> int:
     with sync_checked("render_pairs, B = 2", model,
                       ("gen_feat", "decode_chunk_ab", "decode_chunk_cd")):
         syncs = host_syncs(lambda: pipe.render_pairs(pairs, times))
-    if syncs != steps:
-        raise AssertionError(f"render_pairs: {syncs} host syncs, expected "
-                             f"{steps} (one chunk's RGB to the host a step)")
+    if syncs != 1:
+        raise AssertionError(f"render_pairs: {syncs} host syncs, expected 1 "
+                             "(the decoder's RGB field to the host)")
     log(f"  render_pairs: no host sync in gen_feat or a chunk step; {syncs} "
-        "in all, each chunk's RGB to the host")
+        f"in all over {steps} chunk steps, the RGB field to the host")
     del both, pairs
 
     log("[5d] local-ensemble, test-mode and zoom windows")
@@ -2014,7 +2034,7 @@ def parallel_phase(card: str, device) -> int:
     with torch.inference_mode():
         feat = model.gen_feat(x)
     steps = -(-HH * WW // CHUNK)
-    one = ChunkedDecoder(model, CHUNK)
+    one = ChunkedDecoder(model, CHUNK, compiled=False)  # as the mesh runs
     mesh = make_mesh({"model": 2}, [torch.device("cuda", 0)] * 2)
     two = ChunkedDecoder(model, CHUNK, mesh=mesh)
     if two.n_par != 2:
@@ -2028,7 +2048,7 @@ def parallel_phase(card: str, device) -> int:
     d = max_abs(got, want)
     require(f"mesh ({mesh_chunks // 2} steps of 2 x {C} queries) vs one "
             "device, max|d|", d, d <= MESH_BAR)
-    size1 = ChunkedDecoder(model, CHUNK, mesh=default_mesh())
+    size1 = ChunkedDecoder(model, CHUNK, mesh=default_mesh(), compiled=False)
     same = count.run("ChunkedDecoder, default_mesh() of size 1", 3 * steps,
                      lambda: size1.decode(feat, x, t, (HH, WW)), dcn=None)
     if size1.n_par != 1 or not np.array_equal(same, want):
@@ -2190,10 +2210,11 @@ def bench_phase(card: str, device) -> Launches:
                      dcn=(DCN_PER_PAIR * calls, 0))
     for mode, r in (("b1", b1), ("batched full", full)):
         log(f"  {mode}, compiled: {json.dumps(r['programs'])}")
-    calls -= 1  # the chunked mode stays eager
+    calls -= 1  # the chunked mode eager, as before: phase 12 compiles it
     chunked = count.run(
         f"bench_batched chunk {CHUNK}", 3 * steps * calls,
-        lambda: bench.bench_batched(model, groups, times, str(CHUNK)),
+        lambda: bench.bench_batched(model, groups, times, str(CHUNK),
+                                    compiled=False),
         dcn=(DCN_PER_PAIR * calls, 0))
     xb = torch.from_numpy(groups[0]).to(device)
     tb = torch.tensor(times, device=device)
@@ -2434,6 +2455,228 @@ def compiled_phase(card: str, device) -> Launches:
     return count
 
 
+# ---------------------------------------------------------------- phase 12
+
+def chunked_check(count: Launches, what: str, eager_fn, comp_fn, decoder,
+                  expect: int, dcn, card: str):
+    """One compiled chunked path against its eager run ``eager_fn``: the
+    eager call, the first compiled call (warm-ups, captures, replays) and a
+    counted replay (``expect`` SIREN launches, ``dcn``), each alone after
+    the peak is reset; then a decode whose replays run under
+    ``no_host_sync`` and which makes exactly one blocking call in all.
+    ``decoder()`` gives the compiled ``ChunkedDecoder`` (once the first call
+    has made it). Every output bitwise the eager one. Returns the eager and
+    compiled peaks in GiB (the compiled one over its first call, the
+    captures included)."""
+    import torch
+
+    def alone(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        return out, torch.cuda.max_memory_allocated() / 2**30
+
+    want, eager_peak = alone(eager_fn)
+    first, comp_peak = alone(comp_fn)
+    programs = decoder().programs
+    captured = programs.captures
+    if captured == 0:
+        raise AssertionError(f"{what}: the first call captured nothing")
+    again = count.run(f"{what}, replay", expect, comp_fn, dcn=dcn)
+    with sync_checked(f"{what}, the decoder's replays", programs, ("run",)):
+        syncs = host_syncs(comp_fn)
+    if programs.captures != captured:
+        raise AssertionError(f"{what}: a warm bucket was captured again")
+    if syncs != 1:
+        raise AssertionError(f"{what}: {syncs} blocking calls in a decode, "
+                             "expected 1 (the RGB field to the host)")
+    d = max(max_abs(first, want), max_abs(again, want))
+    require(f"{what}: compiled (first call and replay) vs eager, max|d|", d,
+            d <= COMPILED_BAR)
+    for st in programs.stats():
+        log(f"    {st['key']}: warm-up {st['warmup_ms']:.1f} ms, capture "
+            f"{st['capture_ms']:.1f} ms, pool {st['pool_bytes'] / 2**30:.3f}"
+            f" GiB, replays {st['replays']}, launches a replay "
+            f"{json.dumps(st['launches'])} [{card}]")
+    log(f"    {captured} captures, 0 on the later calls; 1 blocking call a "
+        f"decode, no host sync in the replays; held by the decoder "
+        f"{decoder().stats()['held_bytes'] / 2**30:.3f} GiB; peak eager "
+        f"{eager_peak:.3f}, compiled {comp_peak:.3f} GiB "
+        f"({comp_peak / eager_peak:.3f} x) [{card}]")
+    return eager_peak, comp_peak
+
+
+def in_turns(count: Launches, what: str, eager_fn, comp_fn, expect: int,
+             dcn):
+    """Wall ms of ``eager_fn`` (key False) and ``comp_fn`` (True) in turns:
+    eager, compiled, compiled, eager; each call ends on the host."""
+    import torch
+
+    walls = {False: [], True: []}
+    for comp in (False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        count.run(f"{what}, {'compiled' if comp else 'eager'}", expect,
+                  comp_fn if comp else eager_fn, dcn=dcn)
+        walls[comp].append(1e3 * (time.perf_counter() - t0))
+    return walls
+
+
+def chunked_split(model, x, decode: dict, card: str) -> None:
+    """Wall ms of the three parts of a call of the bench's chunked mode, each
+    ended on the host, eager (key False) and compiled in turns: the eager
+    ``gen_feat`` of ``x``, ``decode[c]()`` (the decode of the same
+    features, its RGB on the host) and the host's quantisation of it."""
+    import torch
+    from stif_tpu_torch.runtime import bench
+
+    parts = {c: [] for c in (False, True)}
+    with torch.inference_mode():
+        for c in (False, True, True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.gen_feat(x)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = decode[c]()
+            t2 = time.perf_counter()
+            bench.quantize(torch.from_numpy(out))
+            t3 = time.perf_counter()
+            parts[c].append((t1 - t0, t2 - t1, t3 - t2))
+    for c in (False, True):
+        ms = np.asarray(parts[c]) * 1e3
+        log(f"  a chunked call, B {x.shape[0]}, "
+            f"{'compiled' if c else 'eager'} decode: gen_feat "
+            f"{', '.join(f'{v:.1f}' for v in ms[:, 0])} ms, decode "
+            f"{', '.join(f'{v:.1f}' for v in ms[:, 1])} ms, the host's "
+            f"quantisation {', '.join(f'{v:.1f}' for v in ms[:, 2])} ms "
+            f"[{card}]")
+
+
+def chunked_phase(card: str, device) -> Launches:
+    """Phase 12: the ``ChunkedDecoder``'s passes as CUDA graphs against the
+    eager decode, then the bench's chunked mode eager and compiled in turns.
+    Returns the ``Launches`` of every path driven."""
+    import torch
+    from stif_tpu_torch.runtime import (ChunkedDecoder, InferencePipeline,
+                                        bench)
+
+    count = Launches()
+    torch.cuda.empty_cache()
+    model = deployed_model().to(device).eval()
+    rng = np.random.default_rng(12)
+    frames = rng.random((3,) + LR_HW + (3,)).astype(np.float32)
+    times = [i / N_TIMES for i in range(N_TIMES)]
+    HH, WW = LR_HW[0] * SCALE, LR_HW[1] * SCALE
+    steps = -(-HH * WW // CHUNK)
+
+    log(f"[12] compiled ChunkedDecoder against eager: LR {LR_HW[0]}x"
+        f"{LR_HW[1]} -> {N_TIMES} x {HH}x{WW}, chunk {CHUNK} ({steps} steps, "
+        f"the last one padded), trained weights")
+    x1 = torch.from_numpy(frames[None, :2]).to(device)
+    x2 = torch.from_numpy(np.stack([frames[:2], frames[1:]])).to(device)
+    t = torch.tensor(times, device=device)
+    t2 = torch.from_numpy(rng.random((2, N_TIMES)).astype(np.float32)).to(
+        device)
+    with torch.inference_mode():
+        f1, f2 = model.gen_feat(x1), model.gen_feat(x2)
+    peaks = {}
+    for what, feat, x, tt, test in (
+            ("decode, B 1", f1, x1, t, False),
+            ("decode, B 2, per-sample times", f2, x2, t2, False),
+            ("decode, test mode, B 1", f1, x1, t, True)):
+        eager = ChunkedDecoder(model, CHUNK, compiled=False)
+        comp = ChunkedDecoder(model, CHUNK)
+
+        def run(decoder):
+            return decoder.decode(feat, x, tt, (HH, WW), hr_inp_upsample=test)
+
+        peaks[what] = chunked_check(count, what, lambda: run(eager),
+                                    lambda: run(comp), lambda: comp,
+                                    3 * steps, None, card)
+        if not test:
+            walls = in_turns(count, what, lambda: run(eager),
+                             lambda: run(comp), 3 * steps, None)
+            log(f"  {what}: eager {fmt_runs(walls[False])}, compiled "
+                f"{fmt_runs(walls[True])} (in turns) [{card}]")
+        if x is x2:  # the work of one call of the bench's chunked mode
+            chunked_split(model, x, {False: lambda: run(eager),
+                                     True: lambda: run(comp)}, card)
+            for c, dec in ((False, eager), (True, comp)):
+                device_profile(lambda: run(dec), float(np.median(walls[c])),
+                               f"{what}, {'compiled' if c else 'eager'}",
+                               card, top=6)
+        del eager, comp
+        torch.cuda.empty_cache()
+    e, c = peaks["decode, B 1"]
+    require(f"decode, B 1: compiled peak {c:.3f} GiB over eager {e:.3f} GiB",
+            c / e, c <= PEAK_RATIO * e)
+    del f1, f2, x1, x2
+
+    eager = InferencePipeline(model, compiled=False)
+    comp = InferencePipeline(model)
+    pairs = np.stack([frames[:2], frames[1:]])
+    chunked_check(count, "render_pairs, B = 2",
+                  lambda: eager.render_pairs(pairs, times, CHUNK),
+                  lambda: comp.render_pairs(pairs, times, CHUNK),
+                  lambda: comp._chunked, 3 * steps, (DCN_PER_PAIR, 0), card)
+
+    # a pipeline of its own: the last one's decoder holds its B = 2 buffers
+    del comp
+    torch.cuda.empty_cache()
+    comp = InferencePipeline(model)
+    hd = rng.random((1, 2) + HD_LR_HW + (3,)).astype(np.float32)
+    hp = -(-HD_LR_HW[0] // comp.bucket) * comp.bucket  # padded LR rows
+    hd_steps = -(-hp * SCALE * HD_LR_HW[1] * SCALE // CHUNK)
+    log(f"[12] render_pairs at LR {HD_LR_HW[0]}x{HD_LR_HW[1]} -> {N_TIMES} x "
+        f"{HD_LR_HW[0] * SCALE}x{HD_LR_HW[1] * SCALE} ({hd_steps} chunk "
+        "steps), compiled pipeline against eager")
+    e, c = chunked_check(count, "render_pairs, 1080p",
+                         lambda: eager.render_pairs(hd, times, CHUNK),
+                         lambda: comp.render_pairs(hd, times, CHUNK),
+                         lambda: comp._chunked, 3 * hd_steps,
+                         (DCN_PER_PAIR, 0), card)
+    require(f"render_pairs, 1080p: compiled peak {c:.3f} GiB over eager "
+            f"{e:.3f} GiB", c / e, c <= PEAK_RATIO * e)
+    walls = in_turns(count, "render_pairs, 1080p",
+                     lambda: eager.render_pairs(hd, times, CHUNK),
+                     lambda: comp.render_pairs(hd, times, CHUNK),
+                     3 * hd_steps, (DCN_PER_PAIR, 0))
+    log(f"  render_pairs, 1080p: eager {fmt_runs(walls[False])}, compiled "
+        f"{fmt_runs(walls[True])} (in turns) [{card}]")
+    del eager, comp, hd
+    torch.cuda.empty_cache()
+
+    groups = bench.draw_pairs(rng, 2, LR_HW, 2)
+    log(f"[12] bench chunked mode (chunk {CHUNK}, {len(groups)} x 2 pairs), "
+        "eager and compiled in turns (eager, compiled, compiled, eager)")
+    n = bench.WARMUP + len(groups)
+    runs = {False: [], True: []}
+    for comp in (False, True, True, False):
+        # compiled: the warm-ups of gen_feat's capture (42 dcn_forward) and
+        # of the decoder's two chunk passes' (3 SIREN) come on top
+        r = count.run(
+            f"bench chunk {CHUNK}, compiled={comp}",
+            3 * steps * n + 3 * comp,
+            lambda: bench.bench_batched(model, groups, times, str(CHUNK),
+                                        compiled=None if comp else False),
+            dcn=(DCN_PER_PAIR * (n + comp), 0))
+        runs[comp].append(r)
+    d = max(lsb_diff(a, b) for r in runs[True] for a, b in
+            zip(r["outs"], runs[False][0]["outs"]))
+    require("bench chunked: compiled vs eager uint8 frames, max|d| in LSB",
+            d, d == 0)
+    for comp in (False, True):
+        fps = ", ".join(f"{r['fps']:.3f}" for r in runs[comp])
+        peak = max(r["peak_gib"] for r in runs[comp])
+        log(f"  chunked, {'compiled' if comp else 'eager'}: frames/s {fps}; "
+            f"peak {peak:.3f} GiB [{card}]")
+    log("  chunked, compiled: programs "
+        f"{json.dumps(runs[True][0]['programs'])}")
+    return count
+
+
 def train_state(model) -> dict:
     """What a resume must restore: step, params, Adam moments, EMA (copies
     on the card)."""
@@ -2542,6 +2785,10 @@ def main() -> int:
     t11 = time.perf_counter()
     launches += add(compiled_phase(card, device))
     log(f"    phase 11: {time.perf_counter() - t11:.1f} s")
+
+    t12 = time.perf_counter()
+    launches += add(chunked_phase(card, device))
+    log(f"    phase 12: {time.perf_counter() - t12:.1f} s")
 
     kernels = {"kernels": [{
         "name": "siren_fused",

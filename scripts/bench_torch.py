@@ -14,7 +14,8 @@ per-run values of ``--repeats`` alternating b1 / batched runs (each value
 is their median). The knobs are ``bench.py``'s ``BENCH_*`` variables; the
 port's defaults run fp32 through the fused SIREN kernel
 (``stif_tpu_torch/runtime/bench.py``). On the card b1 and the ``full`` /
-``tsplit`` batched modes replay one captured CUDA graph per bucket, and the
+``tsplit`` batched modes replay one captured CUDA graph per bucket, the
+chunked mode its ``gen_feat``'s and its decoder's passes' graphs, and the
 line gives their captures, replays, warm-up and capture ms and pool bytes;
 ``--eager`` runs them op by op instead.
 

@@ -20,10 +20,11 @@ Two streaming modes, the faster one the headline:
 On a CUDA device both modes replay one captured CUDA graph per bucket
 (``runtime/compiled.py``), as the JAX bench runs one jitted program: b1
 through the pipeline's programs, ``full`` and ``tsplit`` through a program
-cache of their own; the chunked mode stays eager. ``compiled=False`` runs
-them eagerly. The warm-up calls make the captures, so the clock sees
-replays only; each mode returns its programs' captures, replays, warm-up
-and capture ms and pool bytes.
+cache of their own, the chunked mode its ``gen_feat`` through such a cache
+and its decode through the ``ChunkedDecoder``'s programs (one per pass,
+replayed per chunk). ``compiled=False`` runs them eagerly. The warm-up
+calls make the captures, so the clock sees replays only; each mode returns
+its programs' captures, replays, warm-up and capture ms and pool bytes.
 
 The knobs are read from the same ``BENCH_*`` variables as the JAX bench
 (``Knobs.from_env``). Three defaults differ on purpose: gathers, the SIREN
@@ -281,12 +282,14 @@ def bench_batched(model, groups: np.ndarray, times: Sequence[float],
                   compiled=None) -> dict:
     """Stream ``groups`` (n, B, 2, H, W, 3) of B pairs per call after
     ``warmup`` calls on the first group; ``mode`` is ``full``, ``tsplit``
-    or a ``ChunkedDecoder`` chunk size; ``full`` and ``tsplit`` run through
-    a program cache as ``InferencePipeline`` takes ``compiled``. The groups
-    are staged on the device before the clock; the clock stops when the
-    device has finished the last group (``bench.py:187-259``). Returns
+    or a ``ChunkedDecoder`` chunk size; every mode runs through program
+    caches as ``InferencePipeline`` takes ``compiled`` (the chunked mode's
+    ``gen_feat`` through one, its decoder's passes through a sibling). The
+    groups are staged on the device before the clock; the clock stops when
+    the device has finished the last group (``bench.py:187-259``). Returns
     ``fps``, ``outs`` (uint8 (nt, B, 4H, 4W, 3) per group, on the host),
-    ``peak_gib`` and ``programs`` (None when eager)."""
+    ``peak_gib`` and ``programs`` (every program's stats, the decoder's
+    after ``gen_feat``'s in the chunked mode; None when eager)."""
     from stif_tpu_torch.runtime.chunked import ChunkedDecoder
     from stif_tpu_torch.runtime.compiled import program_cache
 
@@ -294,7 +297,8 @@ def bench_batched(model, groups: np.ndarray, times: Sequence[float],
     t = torch.tensor(list(times), dtype=torch.float32, device=device)
     hh, ww = groups.shape[3] * SCALE, groups.shape[4] * SCALE
     half = len(times) // 2
-    programs = None
+    programs = program_cache(device, compiled)
+    decoder = None
     if mode in ("full", "tsplit"):
         if mode == "full":
             def step(xb, tt):
@@ -305,7 +309,6 @@ def bench_batched(model, groups: np.ndarray, times: Sequence[float],
                 return torch.cat(
                     [quantize(model.decode(feat, xb, tt[:half])),
                      quantize(model.decode(feat, xb, tt[half:]))])
-        programs = program_cache(device, compiled)
 
         def run(xb):
             if programs is None:
@@ -314,10 +317,15 @@ def bench_batched(model, groups: np.ndarray, times: Sequence[float],
             return programs.run(f"batched {mode}", step, (xb, t),
                                 model).clone()
     else:
-        decoder = ChunkedDecoder(model, chunk_size=int(mode), device=device)
+        decoder = ChunkedDecoder(
+            model, chunk_size=int(mode), device=device,
+            compiled=False if programs is None else programs.sibling())
 
         def run(xb):
-            out = decoder.decode(model.gen_feat(xb), xb, t, (hh, ww))
+            feat = (model.gen_feat(xb) if programs is None else
+                    programs.run("batched gen_feat", model.gen_feat, (xb,),
+                                 model))
+            out = decoder.decode(feat, xb, t, (hh, ww))
             return quantize(torch.from_numpy(out))
 
     with torch.inference_mode():
@@ -332,8 +340,11 @@ def bench_batched(model, groups: np.ndarray, times: Sequence[float],
         dt = (time.perf_counter() - t0) / len(staged)
         peak = _peak_gib(device)
         outs = [o.cpu().numpy() for o in outs]
+    stats = _programs(programs)
+    if stats is not None and decoder is not None:
+        stats += decoder.programs.stats()
     return {"fps": groups.shape[1] * len(times) / dt, "outs": outs,
-            "peak_gib": peak, "programs": _programs(programs)}
+            "peak_gib": peak, "programs": stats}
 
 
 # ------------------------------------------------------------------ FLOPs

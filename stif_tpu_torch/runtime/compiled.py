@@ -5,6 +5,8 @@ per (shape, nt, out_size), ``:164-168`` for TMNet, ``:185-189`` for
 
 A JAX window is one dispatch of one compiled program. Here a ``Program`` is
 one captured ``torch.cuda.CUDAGraph`` of a callable at one input shape. The
+``ChunkedDecoder``'s passes are programs too (``runtime/chunked.py``, the
+counterpart of ``stif_tpu/runtime/chunked.py:68-87``). The
 first call of a key runs the callable eagerly once: that warm-up builds the
 bucket's constants (``ops/constants.py``), the cuDNN and cuBLAS handles and
 workspaces and the kernels' shared-memory attributes. The call then captures
@@ -12,12 +14,18 @@ the callable on the cache's capture stream, instantiates the graph and
 replays it, so its output is bit for bit that of every later replay. A later
 call copies its inputs into the program's static inputs on the current
 stream and replays the graph: one ``cudaGraphLaunch`` in place of the
-forward's ~2,800 launches from Python.
+forward's ~2,800 launches from Python. A caller may mark inputs
+``resident``: they are not copied, the graph reads them where they lie (a
+chunk pass reads the whole HR feature field, 4 GiB at 1080p with 8 times,
+which a copy per chunk would move again and again).
 
 The key is the JAX key and the model's route:
 
-- the callable's name, the model, every input's shape and dtype, and the
-  static arguments (``out_size``, ``test``, ``local_ensemble``);
+- the callable's name, the model, every input's shape and dtype, the
+  ``data_ptr``, shape, strides and dtype of every resident input, and the
+  static arguments (``out_size``, ``test``, ``local_ensemble``). A resident
+  tensor at a new address is a new key: a graph never replays over memory
+  its caller has let go of;
 - the route: the ``data_ptr``, shape and dtype of every parameter and
   buffer of the model, and the route epoch of ``ops/capture.py``. A graph
   holds the kernels and pointers of its capture: ``set_fused``,
@@ -29,13 +37,16 @@ The key is the JAX key and the model's route:
 
 What a program keeps, and what its caller must keep to:
 
-- its static inputs and output, the store tensors its forward read (the
-  store's bound must not free them), and the kernel launches it holds,
-  which each replay adds to the wrappers' counts (a capture adds none);
-- the output is overwritten by the next replay of any program of the same
+- its static inputs and outputs (a tensor, or a tuple of tensors), the
+  store tensors its forward read (the store's bound must not free them),
+  and the kernel launches it holds, which each replay adds to the wrappers'
+  counts (a capture adds none). It holds no resident input: the caller
+  keeps each alive, unchanged in place, for as long as it replays the
+  program with it;
+- each output is overwritten by the next replay of any program of the same
   cache: its programs share one memory pool (``torch.cuda.graph_pool_handle``),
   so one bucket's output may lie where another's intermediates go. A caller
-  reads or copies the output on the current stream before it replays
+  reads or copies the outputs on the current stream before it replays
   another program, and replays only on that one stream;
 - capture and replay run under ``torch.cuda.device(cache.device)``.
 
@@ -48,14 +59,15 @@ go on. ``relaxed`` would let the capturing thread itself sync unseen.
 A capture or a replay that fails raises; nothing falls back to the eager
 callable. The CPU has no graphs: ``program_cache`` gives None there unless a
 caller hands over a cache of its own with another capture step (the CPU
-tests replay the callable into one static output, as a graph does).
+tests replay the callable into its static outputs, as a graph does).
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -68,9 +80,12 @@ CAPTURE_ERROR_MODE = "thread_local"
 # stream per pipeline would leave one behind with every pipeline
 _capture_streams: Dict[int, torch.cuda.Stream] = {}
 
-# a capture step: (callable, static inputs, cache) -> (replay, static output)
+# what a program returns: one tensor, or a tuple of them
+Outputs = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+
+# a capture step: (callable, its inputs, cache) -> (replay, static outputs)
 CaptureStep = Callable[[Callable, Tuple[torch.Tensor, ...], "ProgramCache"],
-                       Tuple[Callable[[], None], torch.Tensor]]
+                       Tuple[Callable[[], None], Outputs]]
 
 
 def route(model: torch.nn.Module) -> tuple:
@@ -82,10 +97,28 @@ def route(model: torch.nn.Module) -> tuple:
             tuple((v.data_ptr(), tuple(v.shape), v.dtype) for v in tensors))
 
 
+@contextlib.contextmanager
+def _collector_paused():
+    """Collect the garbage now and keep the cyclic collector off inside. A
+    reference cycle that holds an older program (its graph) could otherwise
+    be collected in the middle of a capture, and destroying a graph there
+    invalidates the capture (``torch.cuda.graph`` no longer collects before
+    it captures)."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def cuda_graph(fn: Callable, inputs: Tuple[torch.Tensor, ...],
                cache: "ProgramCache"):
     """The capture step on a CUDA device: ``fn(*inputs)`` captured into a
-    ``torch.cuda.CUDAGraph`` on the cache's capture stream, in its pool."""
+    ``torch.cuda.CUDAGraph`` on the cache's capture stream, in its pool
+    (``inputs`` are the static inputs, then the resident ones)."""
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, pool=cache.pool, stream=cache.stream,
                           capture_error_mode=CAPTURE_ERROR_MODE):
@@ -97,7 +130,7 @@ class Program:
     """One captured callable at one key (see the module docstring)."""
 
     def __init__(self, label: str, inputs: Tuple[torch.Tensor, ...],
-                 output: torch.Tensor, replay: Callable[[], None],
+                 output: Outputs, replay: Callable[[], None],
                  recording: capture_scope.Recording, warmup_ms: float,
                  capture_ms: float, pool_bytes: Optional[int]):
         self.label = label
@@ -111,9 +144,10 @@ class Program:
         self.pool_bytes = pool_bytes
         self.replays = 0
 
-    def __call__(self, *args: torch.Tensor) -> torch.Tensor:
+    def __call__(self, *args: torch.Tensor) -> Outputs:
         """Copy ``args`` into the static inputs, replay, count the launches;
-        the static output (overwritten by the next replay of the cache)."""
+        the static outputs (overwritten by the next replay of the cache).
+        The resident inputs are read where they were at the capture."""
         for static, arg in zip(self.inputs, args):
             static.copy_(arg)
         self._replay()
@@ -172,15 +206,20 @@ class ProgramCache:
                 else contextlib.nullcontext())
 
     def run(self, name: str, fn: Callable, inputs: Sequence[torch.Tensor],
-            model: torch.nn.Module, static: Optional[dict] = None
-            ) -> torch.Tensor:
-        """``fn(*inputs, **static)``, through the program of its key: a
-        replay, or on the key's first call a warm-up, a capture and a
-        replay. Returns the program's static output (read or copy it before
-        the next call of this cache)."""
+            model: torch.nn.Module, static: Optional[dict] = None,
+            resident: Sequence[torch.Tensor] = ()) -> Outputs:
+        """``fn(*inputs, *resident, **static)``, through the program of its
+        key: a replay, or on the key's first call a warm-up, a capture and
+        a replay. ``inputs`` are copied into the program's static inputs at
+        each call, ``resident`` ones are read in place (see the module
+        docstring). Returns the program's static outputs (read or copy them
+        before the next call of this cache)."""
         static = dict(static or {})
+        resident = tuple(resident)
         key = (name, model,
                tuple((tuple(v.shape), v.dtype) for v in inputs),
+               tuple((v.data_ptr(), tuple(v.shape), v.stride(), v.dtype)
+                     for v in resident),
                tuple(sorted(static.items())), route(model))
         with self._scope():
             program = self.programs.get(key)
@@ -190,7 +229,8 @@ class ProgramCache:
                          + "".join(f" {k}={v}" for k, v in sorted(
                              static.items())))
                 program = self._compile(
-                    label, lambda *xs: fn(*xs, **static), tuple(inputs))
+                    label, lambda *xs: fn(*xs, **static), tuple(inputs),
+                    resident)
                 self.programs[key] = program
             return program(*inputs)
 
@@ -200,29 +240,46 @@ class ProgramCache:
         for key in [k for k in self.programs if k[-1] != route(k[1])]:
             del self.programs[key]
 
+    def clear(self) -> None:
+        """Forget every program: their graphs and static buffers go, the
+        pool stays for the next captures."""
+        self.programs.clear()
+
+    def sibling(self) -> "ProgramCache":
+        """An empty cache on the same device with the same capture step and
+        a pool of its own: no replay of one can write over the other's
+        outputs."""
+        return ProgramCache(self.device, self.capture)
+
     def _compile(self, label: str, fn: Callable,
-                 inputs: Tuple[torch.Tensor, ...]) -> Program:
+                 inputs: Tuple[torch.Tensor, ...],
+                 resident: Tuple[torch.Tensor, ...] = ()) -> Program:
         statics = tuple(torch.empty_like(v) for v in inputs)
         for s, v in zip(statics, inputs):
             s.copy_(v)
-        t0 = time.perf_counter()
-        if self.cuda:
-            # the warm-up on the capture stream: the workspaces it makes
-            # are those of the stream the capture runs on
-            self.stream.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(self.stream):
-                fn(*statics)
-            torch.cuda.synchronize(self.device)
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(self.device)
-        else:
-            fn(*statics)
-        t1 = time.perf_counter()
-        with capture_scope.scope() as recording:
-            replay, output = self.capture(fn, statics, self)
-        if not isinstance(output, torch.Tensor):
-            raise TypeError(f"a compiled program returns one tensor, got "
-                            f"{type(output).__name__}")
+        args = statics + resident
+        with _collector_paused():
+            t0 = time.perf_counter()
+            if self.cuda:
+                # the warm-up on the capture stream: the workspaces it makes
+                # are those of the stream the capture runs on
+                self.stream.wait_stream(
+                    torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(self.stream):
+                    fn(*args)
+                torch.cuda.synchronize(self.device)
+                torch.cuda.empty_cache()
+                reserved = torch.cuda.memory_reserved(self.device)
+            else:
+                fn(*args)
+            t1 = time.perf_counter()
+            with capture_scope.scope() as recording:
+                replay, output = self.capture(fn, args, self)
+        outputs = output if isinstance(output, tuple) else (output,)
+        if not outputs or not all(isinstance(v, torch.Tensor)
+                                  for v in outputs):
+            raise TypeError(f"a compiled program returns a tensor or a tuple "
+                            f"of tensors, got {type(output).__name__}")
         t2 = time.perf_counter()
         pool_bytes = (torch.cuda.memory_reserved(self.device) - reserved
                       if self.cuda else None)

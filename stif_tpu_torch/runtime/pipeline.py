@@ -10,9 +10,11 @@ grids and scale vectors and keeps them on the device (``ops/constants.py``),
 as a JAX trace bakes them in; it then captures the forward as a CUDA graph
 (``runtime/compiled.py``), and every later call of the bucket replays that
 graph: one launch from the host in place of the forward's ~2,800. So time a
-bucket after one warm-up call. ``compiled=False`` runs the forward eagerly
-on the card (the stage ranges of a profile need it), and the CPU, which has
-no graphs, always does. The inputs go up from pinned memory without a wait.
+bucket after one warm-up call. ``render_pairs``' ``ChunkedDecoder`` replays
+its passes' graphs the same way, once per chunk. ``compiled=False`` runs the
+forward eagerly on the card (the stage ranges of a profile need it), and the
+CPU, which has no graphs, always does. The inputs go up from pinned memory
+without a wait.
 """
 
 from __future__ import annotations
@@ -96,7 +98,8 @@ class InferencePipeline:
     device and runs eagerly on the CPU; False runs eagerly; True asks for
     graphs and raises off a CUDA device; a ``ProgramCache`` is used as it is.
     The window's forward, TMNet's and ``render_pairs``' ``gen_feat`` go
-    through it; the ``ChunkedDecoder``'s decode stays eager."""
+    through it; ``render_pairs``' ``ChunkedDecoder`` takes the same choice,
+    with a cache of its own (``ProgramCache.sibling``)."""
 
     def __init__(self, model: torch.nn.Module, scale: int = 4,
                  bucket: int = 16, device=None, test_mode: bool = False,
@@ -116,6 +119,8 @@ class InferencePipeline:
         # x8 geometric self-ensemble (EDSR dihedral average): not a
         # reference mode; an optional quality / compute trade
         self.self_ensemble = self_ensemble
+        # render_pairs' decoder, made anew only when the chunk size changes
+        self._chunked = None
 
     def render_window(self, frames: np.ndarray,
                       times: Sequence[float]) -> np.ndarray:
@@ -263,8 +268,13 @@ class InferencePipeline:
         The encoder runs once at batch B; the decoder goes through the
         ``ChunkedDecoder``, so the B * nt query set stays memory-bounded at
         any frame size. Neither ensemble applies here, as in the JAX package.
-        ``gen_feat`` runs as its bucket's program when compiled; the decoder
-        reads its output before the pipeline replays anything else."""
+        When compiled, ``gen_feat`` runs as its bucket's program and the
+        decoder's passes as its own programs, the decoder's first pass
+        copying ``gen_feat``'s output before the pipeline replays anything
+        else. The pipeline keeps its decoder, with the decoder's programs
+        and buffers, across calls, and makes a new one only when
+        ``chunk_size`` changes (``stif_tpu/runtime/pipeline.py:190-192``).
+        One blocking call per call: the frames to the host."""
         from stif_tpu_torch.runtime.chunked import ChunkedDecoder
 
         x, (h, w) = pad_to_multiple(np.asarray(pairs, np.float32), 4,
@@ -273,9 +283,14 @@ class InferencePipeline:
         xt, t = self._upload(x, np.asarray(times, np.float32))
         with torch.inference_mode():
             feat = self._run("gen_feat", self.model.gen_feat, (xt,))
-        decoder = ChunkedDecoder(self.model, chunk_size, device=self.device)
-        out = decoder.decode(feat, xt, t, (hp * self.scale, wp * self.scale),
-                             hr_inp_upsample=self.test_mode)
+        if self._chunked is None or self._chunked.chunk != chunk_size:
+            self._chunked = ChunkedDecoder(
+                self.model, chunk_size, device=self.device,
+                compiled=(False if self.programs is None
+                          else self.programs.sibling()))
+        out = self._chunked.decode(feat, xt, t,
+                                   (hp * self.scale, wp * self.scale),
+                                   hr_inp_upsample=self.test_mode)
         out = np.moveaxis(out, 0, 1)  # (B, nt, HH, WW, 3)
         return out[:, :, :h * self.scale, :w * self.scale]
 

@@ -120,7 +120,8 @@ def test_chunked_takes_no_mesh():
     from stif_tpu_torch.parallel import default_mesh
 
     assert list(inspect.signature(ChunkedDecoder.__init__).parameters) == [
-        "self", "model", "chunk_size", "device", "mesh", "mesh_axis"]
+        "self", "model", "chunk_size", "device", "mesh", "mesh_axis",
+        "compiled"]
     dec = ChunkedDecoder(torch.nn.Identity(), device="cpu",
                          mesh=default_mesh(2, device_type="cpu"))
     assert dec.mesh is None and dec.n_par == 1

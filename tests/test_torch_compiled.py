@@ -1,9 +1,10 @@
 """The per-bucket compiled programs (``runtime/compiled.py``) on the CPU.
 
 The CPU has no CUDA graphs, so these tests hand the pipeline a
-``ProgramCache`` whose capture step is a test double: a program that
-replays the callable into its one static output buffer with ``copy_``, as
-a graph replays its kernels into the same addresses. Everything around the
+``ProgramCache`` whose capture step is a test double
+(``torch_parity.replay_double``): a program that replays the callable into
+its static output buffers with ``copy_``, as a graph replays its kernels
+into the same addresses. Everything around the
 capture is the code the card runs: the keys and routes, the static inputs,
 the warm-up, the capture scope (store tensors held, launches tallied), the
 copy out of the static output, the stale programs dropped.
@@ -36,26 +37,13 @@ from stif_tpu_torch.ops import (capture, constants, dcn_forward,
                                 set_dcn_impl, siren_apply_fused)
 from stif_tpu_torch.runtime import InferencePipeline, ProgramCache, bench
 from stif_tpu_torch.runtime.compiled import program_cache
-from torch_parity import load_into_port, random_params
+from torch_parity import load_into_port, random_params, replay_double
 
 CFG = dict(nf=16, nframes=6, groups=4, front_RBs=2, back_RBs=2,
            rgb_skip=True, rgb_skip_bicubic=True)
 TINY_TM = dict(nf=8, groups=2, front_RBs=1, back_RBs=1)
 TIMES = [0.0, 0.5]
 BAR = 5e-5
-
-
-def replay_double(fn, inputs, cache):
-    """The capture step's test double: the callable's output becomes the
-    program's one static output, and each replay runs the callable again
-    and copies its result into that buffer. Its own launches are not
-    counted: a replay adds the program's tally, as a graph's does."""
-    out = fn(*inputs).clone()
-
-    def replay():
-        with capture.scope():
-            out.copy_(fn(*inputs))
-    return replay, out
 
 
 def double_cache():
@@ -115,7 +103,7 @@ def test_compiled_window_equals_eager(luna, path):
 
 def test_compiled_render_pairs_equals_eager(luna):
     """``render_pairs``' ``gen_feat`` through the cache (one program of the
-    batch's bucket), the chunked decode eager: bitwise."""
+    batch's bucket), the chunked decode through its own: bitwise."""
     comp, eager = _pipes(luna[2])
     pairs = np.stack([_frames(2, 12, 14, 3), _frames(2, 12, 14, 4)])
     want = eager.render_pairs(pairs, TIMES, chunk_size=100)
@@ -367,3 +355,62 @@ def test_bench_b1_through_the_cache(luna):
     assert stats["replays"] == 4 and stats["pool_bytes"] is None
     for g, w in zip(got["outs"], want["outs"]):
         np.testing.assert_array_equal(g, w)
+
+
+def test_bench_chunked_through_the_cache(luna):
+    """The bench's chunked mode through a program cache: its ``gen_feat``
+    one program of the cache, its decoder's four passes programs of a
+    sibling; the frames equal the eager mode's bitwise, and the line's
+    ``programs`` lists all five."""
+    model = luna[2]
+    groups = bench.draw_pairs(np.random.default_rng(16), 3, (16, 16), 2)
+    want = bench.bench_batched(model, groups, TIMES, "1000", warmup=0,
+                               compiled=False)
+    got = bench.bench_batched(model, groups, TIMES, "1000", warmup=1,
+                              compiled=double_cache())
+    assert want["programs"] is None
+    keys = [st["key"].split()[0] for st in got["programs"]]
+    assert keys[0] == "batched" and sorted(keys[1:]) == [
+        "ab", "cd", "prep", "skip"]
+    replays = {st["key"].split()[0]: st["replays"] for st in got["programs"]}
+    steps = -(-64 * 64 // 1000)
+    assert replays == {"batched": 4, "prep": 4, "skip": 4, "ab": 4 * steps,
+                       "cd": 4 * steps}
+    for g, w in zip(got["outs"], want["outs"]):
+        np.testing.assert_array_equal(g, w)
+    assert not np.array_equal(got["outs"][0], got["outs"][1])
+
+
+def test_capture_runs_with_the_garbage_collected():
+    """A program left in a reference cycle is collected before the next
+    capture, and the cyclic collector is off while it runs: destroying a
+    graph in the middle of a capture would invalidate the capture. The
+    collector is on again after it, and after a failed one."""
+    import gc
+
+    class Holder:
+        pass
+
+    seen = []
+
+    def step(fn, inputs, cache):
+        seen.append((alive(), gc.isenabled()))
+        return replay_double(fn, inputs, cache)
+
+    model, x = _Counting(), torch.ones(3)
+    old = Holder()
+    old.cache = ProgramCache("cpu", capture=replay_double)
+    old.cache.run("count", model, (x,), model)
+    old.self = old  # a cycle: only the collector frees it
+    alive = weakref.ref(old.cache)
+    del old
+    cache = ProgramCache("cpu", capture=step)
+    cache.run("count", model, (x,), model)
+    assert seen == [(None, False)] and gc.isenabled()
+
+    def broken(fn, inputs, cache):
+        raise RuntimeError("capture failed")
+
+    with pytest.raises(RuntimeError, match="capture failed"):
+        ProgramCache("cpu", capture=broken).run("count", model, (x,), model)
+    assert gc.isenabled()

@@ -332,7 +332,9 @@ def test_decode_paths_launch_the_kernel(small_model, case, launches):
 @pytest.mark.parametrize("chunk", [512, 500, 4096])
 def test_chunked_decoder_on_the_card(small_model, chunk):
     """Chunked against the full decode of the same features (1e-4), a batch
-    of two, 3 launches per chunk step."""
+    of two, 3 launches per chunk step; the decoder's passes are CUDA graphs
+    by default, so the first decode adds the eager warm-ups of the two chunk
+    passes (2 launches in A+B, 1 in C+D)."""
     from stif_tpu_torch.runtime import ChunkedDecoder
 
     build, x, times = small_model
@@ -343,7 +345,7 @@ def test_chunked_decoder_on_the_card(small_model, chunk):
     before = siren_apply_fused.launches
     got = ChunkedDecoder(model, chunk).decode(feat, x, times, (32, 48))
     steps = -(-32 * 48 // min(chunk, 32 * 48))
-    assert siren_apply_fused.launches == before + 3 * steps
+    assert siren_apply_fused.launches == before + 3 * steps + 3
     assert np.abs(got - want).max() <= 1e-4
 
 
@@ -957,3 +959,149 @@ def test_compiled_sees_a_weight_reload(small_model):
         assert np.abs(plain - eager.render_window(frames, times)).max() == 0
     finally:
         set_fused(model, True)
+
+
+def test_capture_survives_a_program_in_a_garbage_cycle(small_model):
+    """A pipeline left in a reference cycle still holds its captured graph
+    until the collector frees it, and a graph destroyed in the middle of
+    another capture invalidates that capture. The cache collects the
+    garbage before it captures and keeps the collector off while it does,
+    so a capture whose forward runs a collection still succeeds and
+    replays the eager frames."""
+    import gc
+
+    from stif_tpu_torch.runtime import InferencePipeline
+
+    build, _, _ = small_model
+    frames = np.random.default_rng(11).random((2, 8, 12, 3)).astype(
+        np.float32)
+    times = [0.0, 0.5]
+    old = InferencePipeline(build(), bucket=4)
+    old.render_window(frames, times)
+    old.cycle = old
+    model = build()
+    want = InferencePipeline(model, bucket=4, compiled=False).render_window(
+        frames, times)
+    forward = model.forward
+
+    def collecting(*args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            gc.collect()  # as an automatic collection might, mid-capture
+        return forward(*args, **kwargs)
+
+    model.forward = collecting
+    pipe = InferencePipeline(model, bucket=4)
+    gc.disable()  # the cycle stays garbage until the capture
+    try:
+        del old
+        got = pipe.render_window(frames, times)
+    finally:
+        gc.enable()
+    assert pipe.programs.captures == 1
+    assert np.abs(got - want).max() == 0
+
+
+# ------------------------------------------------ compiled chunked decode
+
+def _blocking_calls(fn):
+    """``fn()`` and its host-blocking calls, counted by CUDA's sync debug
+    mode at "warn" (one warning each; not the mode's own notice, given once
+    a process, that it is a prototype)."""
+    import warnings
+
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return out, sum("synchroniz" in str(w.message)
+                    and "prototype" not in str(w.message) for w in caught)
+
+
+@pytest.mark.parametrize("case", ["b1", "b2_per_sample_times", "test_mode"])
+@pytest.mark.parametrize("chunk", [500, 4096])
+def test_compiled_chunked_equals_eager_on_the_card(small_model, case, chunk):
+    """The decoder's four passes replayed as CUDA graphs give the eager
+    decode bit for bit (max|d| = 0) on the first call and on a second one,
+    which captures nothing, launches 3 SIREN kernels per chunk step, makes
+    no host sync inside its replays (sync debug mode "error") and one
+    blocking call in all (the frames to the host)."""
+    from stif_tpu_torch.runtime import ChunkedDecoder
+
+    build, x, times = small_model
+    model = build()
+    B = 2 if case == "b2_per_sample_times" else 1
+    if B == 2:
+        times = torch.tensor([[0.0, 0.6], [0.9, 0.2]], device="cuda")
+    with torch.inference_mode():
+        feat = model.gen_feat(x[:B])
+
+    def decode(decoder):
+        return decoder.decode(feat, x[:B], times, (32, 48),
+                              hr_inp_upsample=case == "test_mode")
+
+    want = decode(ChunkedDecoder(model, chunk, compiled=False))
+    comp = ChunkedDecoder(model, chunk)
+    first = decode(comp)
+    assert comp.programs.captures == 4
+    comp.programs.run = _checked(comp.programs.run)
+    before = siren_apply_fused.launches
+    again, blocking = _blocking_calls(lambda: decode(comp))
+    steps = -(-32 * 48 // min(chunk, 32 * 48))
+    assert siren_apply_fused.launches == before + 3 * steps
+    assert comp.programs.captures == 4 and blocking == 1
+    assert np.abs(first - want).max() == 0
+    assert np.abs(again - want).max() == 0
+    assert comp.stats()["held_bytes"] > 0
+    for stats in comp.programs.stats():
+        assert stats["pool_bytes"] >= 0
+
+
+def test_compiled_render_pairs_keeps_its_decoder_on_the_card(small_model):
+    """``render_pairs`` on a compiled pipeline keeps its decoder: the
+    second call captures nothing and makes one blocking call; its frames
+    equal an eager pipeline's bitwise."""
+    from stif_tpu_torch.runtime import InferencePipeline
+
+    build, _, _ = small_model
+    model = build()
+    comp = InferencePipeline(model, bucket=4)
+    eager = InferencePipeline(model, bucket=4, compiled=False)
+    pairs = np.random.default_rng(10).random((2, 2, 8, 12, 3)).astype(
+        np.float32)
+    times = [0.0, 0.4, 1.0]
+    want = eager.render_pairs(pairs, times, chunk_size=300)
+    first = comp.render_pairs(pairs, times, chunk_size=300)
+    decoder = comp._chunked
+    again, blocking = _blocking_calls(
+        lambda: comp.render_pairs(pairs, times, chunk_size=300))
+    assert comp._chunked is decoder and decoder.programs.captures == 4
+    assert comp.programs.captures == 1 and blocking == 1
+    assert np.abs(first - want).max() == 0
+    assert np.abs(again - want).max() == 0
+
+
+def test_compiled_chunked_on_a_card_that_is_not_current(small_model):
+    """A compiled decoder on ``cuda:1`` while ``cuda:0`` is current: its
+    buffers, copies, captures and replays follow its own card, so a decode
+    and its replay equal an eager decoder's on that card bitwise."""
+    from stif_tpu_torch.runtime import ChunkedDecoder
+
+    cards = _cards(2)
+    build, x, times = small_model
+    torch.cuda.set_device(0)
+    model = build().to(cards[1])
+    xs, ts = x[:1].to(cards[1]), times.to(cards[1])
+    with torch.inference_mode():
+        feat = model.gen_feat(xs)
+    want = ChunkedDecoder(model, 500, device=cards[1],
+                          compiled=False).decode(feat, xs, ts, (32, 48))
+    comp = ChunkedDecoder(model, 500, device=cards[1])
+    for _ in range(2):
+        got = comp.decode(feat, xs, ts, (32, 48))
+        assert np.abs(got - want).max() == 0
+    assert torch.cuda.current_device() == 0
+    assert comp.programs.captures == 4

@@ -63,3 +63,25 @@ def load_into_port(port_model: torch.nn.Module, params) -> torch.nn.Module:
 def t(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True))
 
+
+
+def replay_double(fn, inputs, cache):
+    """A test double of ``ProgramCache``'s capture step for the CPU, which
+    has no CUDA graphs: the callable's outputs (a tensor or a tuple) become
+    the program's static outputs, and each replay runs the callable again on
+    the same inputs (the static ones and the resident ones, read in place)
+    and copies its results into those buffers. Its own launches are not
+    counted: a replay adds the program's tally, as a graph's does."""
+    from stif_tpu_torch.ops import capture
+
+    def as_tuple(v):
+        return v if isinstance(v, tuple) else (v,)
+
+    first = fn(*inputs)
+    outs = tuple(v.clone() for v in as_tuple(first))
+
+    def replay():
+        with capture.scope():
+            for out, v in zip(outs, as_tuple(fn(*inputs))):
+                out.copy_(v)
+    return replay, outs if isinstance(first, tuple) else outs[0]
