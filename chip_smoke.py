@@ -87,34 +87,53 @@ Run from the root of a checkout. In order:
       finite PSNR and SSIM;
 8. training at the full width of ``configs/train_synthetic_r5.yml`` (the
    options built as a dict, weights from ``nn/init.py`` under seed 0):
-   a. ``VideoSRModel`` on ``create_train_dataset``'s batches at the x4, x2
-      and x8 buckets (B 4, nt 3): 2 warm-up and 6 timed steps each, per
-      step the bucket, loss and grad norm; then ms per step by CUDA events
-      (median, min, max), the forward / backward / optimizer split,
-      samples/s, peak memory, and at x4 one profiled step (``feed_data``
-      and ``optimize_parameters``): its top kernels, the device's idle
-      share and its host-blocking calls; then ms per step at x4 with the
-      loader's thread stopped, on batches drawn before; no SIREN launch,
-      78 ``dcn_forward`` (42, and 36 recomputed by the ConvLSTM's remat)
-      and 42 ``dcn_backward`` launches a step;
-   b. ten steps on one fixed x4 batch with warmup off: the loss falls;
-   c. one step from the same init on the card and on the CPU (B 1, LR
-      16x16, nt 2): loss within rtol 1e-4, grad norm within rtol 1e-3, and
-      the largest per-parameter gradient difference; the card's step runs
-      the DCN kernels (78 forward and 42 backward launches);
+   a. two ``VideoSRModel``s from the same init, one replaying its train
+      step's CUDA graph (captured once per scale bucket: the step, the
+      optimizer's update and the EMA) and one eager, fed the same
+      ``create_train_dataset`` batches (B 4, nt 3): at the x4, x2 and x8
+      buckets a first step each (the compiled one's warm-up, capture and
+      replay) and 4 rounds in turns, then per model ms per step by CUDA
+      events (median and runs), samples/s, host wall, peak memory, the
+      forward / backward / optimizer split (from the eager steps: a replay
+      has no phases), the capture's warm-up and capture ms and pool bytes,
+      one profiled step each (top kernels, idle share, host-blocking
+      calls) and one compiled step's blocking calls by the sync debug mode
+      (at most 1: the logs' fetch); the x3 and x6 buckets compiled alone;
+      at x4 the
+      first 3 steps compiled against eager (loss rtol 1e-4, grad norm rtol
+      1e-3: the DCN backward's atomics rule out bitwise), the compiled
+      peak within 1.15 x the eager one, a replay (``feed_data`` and
+      ``run_step``) under the sync debug mode "error", and ms per step
+      with the loader's thread stopped, in turns; one capture per bucket
+      and none on a bucket's later steps; no SIREN launch, 78
+      ``dcn_forward`` (42, and 36 recomputed by the ConvLSTM's remat) and
+      42 ``dcn_backward`` launches per eager step, per replay and per
+      capture's warm-up;
+   b. ten compiled steps on one fixed x4 batch with warmup off: the loss
+      falls;
+   c. one eager step from the same init on the card and on the CPU (B 1,
+      LR 16x16, nt 2): loss within rtol 1e-4, grad norm within rtol 1e-3,
+      and the largest per-parameter gradient difference; the card's step
+      runs the DCN kernels (78 forward and 42 backward launches);
    d. save after [8b]'s steps, resume into a fresh model: params, Adam
       moments, step and EMA bitwise equal, the next loss within rtol 1e-5;
-   e. a ``Validator`` probe (1 dev scene, 144x192) through the kernel and
+      then the same resume into [8b]'s model in place: the state bitwise
+      the saved one, and its next step a replay (no capture) within rtol
+      1e-5 of the uninterrupted loss;
+   e. a ``Validator`` probe (1 dev scene, 144x192) replaying its bucket's
+      graph; a second probe with the EMA weights loaded in place: no
+      capture, equal to an eager validator's probe, the pool bytes; then
       through the plain SIREN: Y-PSNR within 0.01 dB; ``BestTracker``'s
       ``best.json`` read back by ``eval_model_torch``'s ``--best`` loader;
-   f. ``scripts/train_torch.py``'s ``run`` for 20 steps (validation and
-      checkpoints every 10), then resumed to 25;
+   f. ``scripts/train_torch.py``'s ``run`` for 10 steps (validation and
+      checkpoints every 5), then resumed to 13;
 9. parallelism and streaming:
    a. the data-parallel train step (DDP over NCCL at world size 1, started
-      in this process on a free port) against the single-process step from
+      in this process on a free port) against the single-process eager step
+      from
       the same seed-0 init, r5 config at full width, x4 bucket, 3 steps:
       loss within rtol 1e-5, grad norm within rtol 1e-4, the largest
-      per-parameter gap; then ms per step of each, median of 5 alternating;
+      per-parameter gap; then ms per step of each, median of 3 alternating;
    b. ``python -m torch.distributed.run --nproc_per_node 1
       scripts/train_torch.py --parallel`` for 6 steps (checkpoint at 5),
       then resumed without ``--parallel`` to 8: both exit 0;
@@ -1553,8 +1572,9 @@ def zoo_phase(card: str, device) -> int:
 # ----------------------------------------------------------------- phase 8
 
 TRAIN_BUCKETS = ((4, 48), (2, 48), (8, 24))  # (scale, LR size): GT 192, 96
-WARM_STEPS, TIMED_STEPS = 2, 6
-STEP_LOSS_RTOL, STEP_GNORM_RTOL = 1e-4, 1e-3  # [8c], card vs CPU
+MORE_BUCKETS = ((3, 48), (6, 32))  # the rest of the r5 plan: compiled only
+TURNS = 4  # [8a]: timed rounds per bucket, eager and compiled in turns
+STEP_LOSS_RTOL, STEP_GNORM_RTOL = 1e-4, 1e-3  # [8a], [8c]: two runs' steps
 RESUME_RTOL = 1e-5                             # [8d], next loss after resume
 
 
@@ -1613,26 +1633,44 @@ def batches(opt: dict):
 
 
 def timed_step(model):
-    """One ``optimize_parameters`` with CUDA events at its phases: (logs,
-    {forward, backward, update, step} ms). 'update' is the optimizer and
-    the EMA; the step ends once its logs are on the host."""
+    """One ``optimize_parameters`` timed by CUDA events: (logs, ms). The
+    step ends once its logs are on the host. An eager model's ms also has
+    its phases (forward, backward, update: the optimizer and the EMA); a
+    replayed step has none, only 'step'."""
     import torch
 
     ev = {k: torch.cuda.Event(enable_timing=True)
           for k in ("start", "forward", "backward", "end")}
     ev["start"].record()
-    logs = model.optimize_parameters(
-        mark=lambda name: ev[name].record() if name in ev else None)
+    if model.programs is None:
+        logs = model.optimize_parameters(
+            mark=lambda name: ev[name].record() if name in ev else None)
+    else:
+        logs = model.optimize_parameters()
     ev["end"].record()
     ev["end"].synchronize()
-    return logs, {"forward": ev["start"].elapsed_time(ev["forward"]),
-                  "backward": ev["forward"].elapsed_time(ev["backward"]),
-                  "update": ev["backward"].elapsed_time(ev["end"]),
-                  "step": ev["start"].elapsed_time(ev["end"])}
+    ms = {"step": ev["start"].elapsed_time(ev["end"])}
+    if model.programs is None:
+        ms.update(forward=ev["start"].elapsed_time(ev["forward"]),
+                  backward=ev["forward"].elapsed_time(ev["backward"]),
+                  update=ev["backward"].elapsed_time(ev["end"]))
+    return logs, ms
 
 
-def train_speed(opt: dict, card: str) -> None:
-    """[8a]: train steps at each of ``TRAIN_BUCKETS``, timed."""
+def mode_name(compiled: bool) -> str:
+    return "compiled" if compiled else "eager"
+
+
+def train_speed(opt: dict, card: str) -> dict:
+    """[8a]: two models from the seed-0 init, one replaying its step's
+    graphs and one eager, fed the same batches: at the x4, x2 and x8
+    buckets a first step each (the compiled one's warm-up, capture and
+    replay), ``TURNS`` rounds in turns (eager, compiled; then compiled,
+    eager), one profiled step each and one compiled step counted by the
+    sync debug mode;
+    at the other buckets of the r5 plan the compiled model alone. Returns
+    the steps each model made and the compiled model's captures (for the
+    launch count)."""
     import torch
     from stif_tpu_torch.data.natural import find_natural_textures
     from stif_tpu_torch.train.video_sr_model import VideoSRModel
@@ -1640,64 +1678,143 @@ def train_speed(opt: dict, card: str) -> None:
     n = len(find_natural_textures())
     log(f"  bundled photographs found: {n}" + (
         "" if n else " (the natural_frac samples are procedural scenes)"))
-    model = VideoSRModel(opt)
-    for bucket in TRAIN_BUCKETS:
-        gen = batches(with_buckets(opt, [bucket]))
-        if model.optimizer is None:  # init from the first batch
-            first = next(gen)
-            model.init_params(first["LQs"], first["times"], seed=0)
-            n = sum(p.numel() for p in model.net.parameters())
-            log(f"  init_model_ (seed 0): {n} parameters")
+    models = {False: VideoSRModel(opt, compiled=False),
+              True: VideoSRModel(opt)}
+    steps = {False: 0, True: 0}
+
+    def step(c, batch):
+        """feed_data and one timed step of model ``c``: (logs, ms, wall ms,
+        peak GiB of the step)."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        rows, walls = [], []
-        for i in range(WARM_STEPS + TIMED_STEPS):
+        t0 = time.perf_counter()
+        models[c].feed_data(batch)
+        logs, ms = timed_step(models[c])
+        wall = 1e3 * (time.perf_counter() - t0)
+        steps[c] += 1
+        if not (np.isfinite(logs["loss"]) and np.isfinite(logs["grad_norm"])):
+            raise AssertionError(f"{mode_name(c)} step {models[c].step}: "
+                                 "not finite")
+        return logs, ms, wall, torch.cuda.max_memory_allocated() / 2**30
+
+    for bucket in TRAIN_BUCKETS + MORE_BUCKETS:
+        modes = (False, True) if bucket in TRAIN_BUCKETS else (True,)
+        gen = batches(with_buckets(opt, [bucket]))
+        first = next(gen)
+        if models[True].optimizer is None:  # init from the first batch
+            for m in models.values():
+                m.init_params(first["LQs"], first["times"], seed=0)
+            n = sum(p.numel() for p in models[True].net.parameters())
+            log(f"  init_model_ (seed 0): {n} parameters, in both models")
+        s, g = bucket[0], first["GT"].shape[2]
+        rows = {c: [] for c in modes}
+        for c in modes:
+            rows[c].append(step(c, first))
+        for i in range(TURNS):
             batch = next(gen)
-            t0 = time.perf_counter()
-            model.feed_data(batch)
-            logs, ms = timed_step(model)
-            wall = 1e3 * (time.perf_counter() - t0)
-            s, g = batch["scale"], batch["GT"].shape[2]
-            log(f"  step {model.step:3d} x{s} GT {g}x{g} B {len(batch['GT'])}"
-                f" nt {batch['GT'].shape[1]}: loss {logs['loss']:.2f}, grad "
-                f"norm {logs['grad_norm']:.1f}, {ms['step']:.1f} ms "
-                f"(wall {wall:.1f})" + ("  [warm-up]" if i < WARM_STEPS
-                                        else ""))
-            if not (np.isfinite(logs["loss"]) and
-                    np.isfinite(logs["grad_norm"])):
-                raise AssertionError(f"step {model.step}: not finite")
-            if i >= WARM_STEPS:
-                rows.append(ms)
-                walls.append(wall)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        step = [r["step"] for r in rows]
-        med = {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
-        B = batch["GT"].shape[0]
-        log(f"  x{bucket[0]} bucket (LR {bucket[1]}, GT {batch['GT'].shape[2]}"
-            f"), {TIMED_STEPS} steps: {med['step']:.1f} ms/step median "
-            f"(min {min(step):.1f}, max {max(step):.1f}); forward "
-            f"{med['forward']:.1f}, backward {med['backward']:.1f}, "
-            f"optimizer + EMA {med['update']:.1f} ms; "
-            f"{1e3 * B / med['step']:.2f} samples/s; host wall "
-            f"{np.median(walls):.1f} ms/step; peak {peak:.2f} GiB [{card}]")
-        if bucket == TRAIN_BUCKETS[0]:  # one profiled step at x4
+            for c in (modes if i % 2 == 0 else modes[::-1]):
+                rows[c].append(step(c, batch))
+        for c in modes:
+            log(f"  x{s} {mode_name(c)}, steps 1-{TURNS + 1}: losses "
+                + ", ".join(f"{r[0]['loss']:.2f}" for r in rows[c])
+                + "; grad norms "
+                + ", ".join(f"{r[0]['grad_norm']:.1f}" for r in rows[c])
+                + f"; first step {rows[c][0][2]:.1f} ms wall")
+        if bucket == TRAIN_BUCKETS[0]:
+            # three steps from one init on the same batches, both ways
+            for i in range(3):
+                (e, *_), (c, *_) = rows[False][i], rows[True][i]
+                d = abs(c["loss"] - e["loss"]) / abs(e["loss"])
+                require(f"x4 step {i + 1}: loss, compiled vs eager, "
+                        "relative", d, d <= STEP_LOSS_RTOL)
+                d = abs(c["grad_norm"] - e["grad_norm"]) / e["grad_norm"]
+                require(f"x4 step {i + 1}: grad norm, compiled vs eager, "
+                        "relative", d, d <= STEP_GNORM_RTOL)
+        comp_stats = models[True].programs.stats()[-1]
+        if comp_stats["replays"] != TURNS + 1:
+            raise AssertionError(f"x{s}: {comp_stats}")
+        walls = {}
+        for c in modes:
+            timed = rows[c][1:]
+            ms = [r[1]["step"] for r in timed]
+            walls[c] = float(np.median([r[2] for r in timed]))
+            med = float(np.median(ms))
+            part = {k: float(np.median([r[1][k] for r in timed]))
+                    for k in ("forward", "backward", "update") if not c}
+            split = (f"forward {part['forward']:.1f}, backward "
+                     f"{part['backward']:.1f}, optimizer + EMA "
+                     f"{part['update']:.1f} ms" if not c else
+                     "split: see the eager line (a replay has no phases)")
+            peak = max(r[3] for r in rows[c])
+            extra = (f"; capture: warm-up {comp_stats['warmup_ms']:.1f} ms, "
+                     f"capture {comp_stats['capture_ms']:.1f} ms, pool "
+                     f"{comp_stats['pool_bytes'] / 2**30:.3f} GiB" if c
+                     else "")
+            log(f"  x{s} bucket (LR {bucket[1]}, GT {g}, B {len(first['GT'])},"
+                f" nt {first['GT'].shape[1]}), {mode_name(c)}, {TURNS} steps"
+                f": {med:.1f} ms/step median (runs "
+                f"{', '.join(f'{v:.1f}' for v in ms)}); {split}; "
+                f"{1e3 * len(first['GT']) / med:.2f} samples/s; host wall "
+                f"{walls[c]:.1f} ms/step; peak {peak:.2f} GiB{extra} "
+                f"[{card}]")
+        if len(modes) == 2:
+            e, c = (max(r[3] for r in rows[k]) for k in (False, True))
+            log(f"  x{s}: compiled peak {c:.2f} GiB over eager {e:.2f} GiB: "
+                f"{c / e:.3f} x")
+            if bucket == TRAIN_BUCKETS[0]:
+                require("x4 compiled peak over eager", c / e,
+                        c <= PEAK_RATIO * e)
+            for c in modes:
+                batch = next(gen)
+                device_profile(lambda: (models[c].feed_data(batch),
+                                        models[c].optimize_parameters()),
+                               walls[c], f"x{s} train step, {mode_name(c)}",
+                               card, top=8 if c else 12)
+                steps[c] += 1
+            batch = next(gen)  # the eager step's are in its profile's line
+            n = host_syncs(lambda: (models[True].feed_data(batch),
+                                    models[True].optimize_parameters()))
+            steps[True] += 1
+            require(f"x{s} compiled: blocking calls in one step (feed_data "
+                    "and optimize_parameters)", n, n <= 1)
+        if bucket == TRAIN_BUCKETS[0]:
             batch = next(gen)
-            device_profile(lambda: (model.feed_data(batch),
-                                    model.optimize_parameters()),
-                           float(np.median(walls)), "x4 train step", card,
-                           top=15)
+            m = models[True]
+            with no_host_sync("x4 train step, replay (feed_data, run_step)"):
+                m.feed_data(batch)
+                metrics = m.run_step()
+            steps[True] += 1
+            if not all(np.isfinite(v.item()) for v in metrics.values()):
+                raise AssertionError("x4 replay: not finite")
             # the same steps with the loader's thread stopped, on batches
             # drawn before: what the loader's host work costs a step
-            drawn = [next(gen) for _ in range(TIMED_STEPS)]
+            drawn = [next(gen) for _ in range(TURNS)]
             gen.close()
-            quiet = []
-            for batch in drawn:
-                model.feed_data(batch)
-                quiet.append(timed_step(model)[1]["step"])
-            log(f"  x4, loader stopped ({TIMED_STEPS} steps on batches drawn "
-                f"before): {np.median(quiet):.1f} ms/step median (min "
-                f"{min(quiet):.1f}, max {max(quiet):.1f}) [{card}]")
+            quiet = {False: [], True: []}
+            for i, batch in enumerate(drawn):
+                for c in (modes if i % 2 == 0 else modes[::-1]):
+                    quiet[c].append(step(c, batch)[1]["step"])
+            for c in modes:
+                log(f"  x4 {mode_name(c)}, loader stopped ({TURNS} steps on "
+                    f"batches drawn before, in turns): "
+                    f"{np.median(quiet[c]):.1f} ms/step median (runs "
+                    f"{', '.join(f'{v:.1f}' for v in quiet[c])}) [{card}]")
         gen.close()
+    comp = models[True].programs
+    if comp.captures != len(TRAIN_BUCKETS + MORE_BUCKETS):
+        raise AssertionError(f"{comp.captures} captures for "
+                             f"{len(TRAIN_BUCKETS + MORE_BUCKETS)} buckets")
+    reserved = torch.cuda.memory_reserved() / 2**30
+    log(f"  compiled: {comp.captures} captures, one per bucket, none on a "
+        f"bucket's later steps; reserved {reserved:.2f} GiB with both models "
+        f"[{card}]")
+    for st in comp.stats():
+        log(f"    {st['key'][:60]}: replays {st['replays']}, warm-up "
+            f"{st['warmup_ms']:.1f} ms, capture {st['capture_ms']:.1f} ms, "
+            f"pool {st['pool_bytes'] / 2**30:.3f} GiB, launches a replay "
+            f"{json.dumps(st['launches'])}")
+    return {"eager": steps[False], "compiled": steps[True],
+            "captures": comp.captures}
 
 
 def train_phase(card: str, device) -> int:
@@ -1720,21 +1837,23 @@ def train_phase(card: str, device) -> int:
     tmp = tempfile.TemporaryDirectory()
     opt = r5_opt(f"{tmp.name}/models", f"{tmp.name}/val")
 
-    log("[8a] train steps at the r5 config's full width: ms, split, "
-        "samples/s, peak, profile")
-    count.run("train steps", 0, lambda: train_speed(opt, card))
-    # the warm-up and timed steps of each bucket, the x4 bucket's profiled
-    # step and its steps with the loader stopped
-    n_steps = (len(TRAIN_BUCKETS) * (WARM_STEPS + TIMED_STEPS) + 1
-               + TIMED_STEPS)
+    log("[8a] train steps at the r5 config's full width, eager and "
+        "compiled in turns: ms, split, samples/s, peak, pools, profiles")
+    t8 = time.perf_counter()
+    made = count.run("train steps", 0, lambda: train_speed(opt, card))
+    # every eager step and every replay runs a step's DCN launches, and so
+    # does each capture's eager warm-up
+    n_steps = made["eager"] + made["compiled"] + made["captures"]
     fwd, bwd = count.last
-    log(f"  DCN launches in {n_steps} steps: {fwd} dcn_forward, {bwd} "
-        "dcn_backward")
+    log(f"  DCN launches in {made['eager']} eager steps, {made['compiled']} "
+        f"replayed ones and {made['captures']} captures' warm-ups: {fwd} "
+        f"dcn_forward, {bwd} dcn_backward")
     if (fwd, bwd) != (DCN_STEP_FORWARD * n_steps, DCN_PER_PAIR * n_steps):
         raise AssertionError(f"DCN launches ({fwd}, {bwd}) in {n_steps} "
                              f"train steps, expected {DCN_STEP_FORWARD} "
                              f"forward and {DCN_PER_PAIR} backward a step")
     torch.cuda.empty_cache()
+    log(f"    [8a]: {time.perf_counter() - t8:.1f} s")
 
     log("[8b] ten steps on one fixed x4 batch, warmup off: the loss falls")
     fixed = copy.deepcopy(opt)
@@ -1762,7 +1881,7 @@ def train_phase(card: str, device) -> int:
     one = {k: (v[None] if k != "key" else v) for k, v in small.items()}
     logs, grads = [], []
     for dev in (device, "cpu"):
-        m = VideoSRModel(fixed, device=dev)
+        m = VideoSRModel(fixed, device=dev, compiled=False)
         m.init_params(one["LQs"], one["times"], seed=0)
         m.feed_data(one)
         t0 = time.perf_counter()
@@ -1811,16 +1930,51 @@ def train_phase(card: str, device) -> int:
     d = abs(resumed - loss_next) / abs(loss_next)
     require(f"step 11 loss resumed {resumed:.4f} vs uninterrupted "
             f"{loss_next:.4f}, relative difference", d, d <= RESUME_RTOL)
+    # the same model resumed in place: its step's program writes the
+    # tensors the load copied into, and replays with no new capture
+    captures = model.programs.captures
+    if model.resume_training() != 10:
+        raise AssertionError("resume in place did not return step 10")
+    mismatch = compare_states(train_state(model), saved)
+    if mismatch:
+        raise AssertionError(f"state resumed in place differs from the "
+                             f"saved one: {mismatch[:5]}")
+    again = model.optimize_parameters()["loss"]
+    d = abs(again - loss_next) / abs(loss_next)
+    require(f"step 11 loss after a resume in place {again:.4f}, replayed "
+            f"with {model.programs.captures - captures} new captures, "
+            f"relative difference", d,
+            d <= RESUME_RTOL and model.programs.captures == captures)
     del fresh, saved
     torch.cuda.empty_cache()
 
     log("[8e] validation probe through the kernel vs the plain SIREN "
         "(1 dev scene, 144x192), keep-best, eval_model_torch --best")
     validator = Validator(model.net, root=f"{tmp.name}/val", n_scenes=1)
+    eager_v = Validator(model.net, root=f"{tmp.name}/val", n_scenes=1,
+                        compiled=False)
     windows = 5  # 12 frames: input pairs (0, 2) ... (8, 10)
     params = model.net.state_dict()
-    m_kernel = count.run("validation probe", 3 * windows,
+    # the first probe captures its bucket: its eager warm-up launches 3
+    m_kernel = count.run("validation probe", 3 * windows + 3,
                          lambda: validator.validate(params))
+    captures = validator._pipe.programs.captures
+    m_ema = count.run("validation probe, EMA weights loaded in place",
+                      3 * windows, lambda: validator.validate(
+                          model.ema_params))
+    m_eager = count.run("validation probe, eager", 3 * windows,
+                        lambda: eager_v.validate(model.ema_params))
+    new = validator._pipe.programs.captures - captures
+    if new or m_ema != m_eager:
+        raise AssertionError(f"second probe: {new} new captures; compiled "
+                             f"{m_ema} vs eager {m_eager}")
+    pools = {k: [st["pool_bytes"] for st in v]
+             for k, v in validator.stats().items()}
+    log(f"  second probe (EMA weights, loaded in place): 0 captures, equal "
+        f"to the eager probe (t0 {m_ema['t0_psnr']:.4f}, t0.5 "
+        f"{m_ema['t05_psnr']:.4f} dB); the probe's pool bytes "
+        f"{json.dumps(pools)} [{card}]")
+    del eager_v
     set_fused(validator.net, False)
     m_plain = count.run("validation probe, plain SIREN", 0,
                         lambda: validator.validate(params))
@@ -1849,34 +2003,35 @@ def train_phase(card: str, device) -> int:
     del validator, model, net, params
     torch.cuda.empty_cache()
 
-    log("[8f] scripts/train_torch.py run(): 20 steps (val and checkpoints "
-        "every 10), then resume to 25")
+    log("[8f] scripts/train_torch.py run(): 10 steps (val and checkpoints "
+        "every 5), then resume to 13")
     spec = importlib.util.spec_from_file_location(
         "train_torch", ROOT / "scripts" / "train_torch.py")
     train_script = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(train_script)
     run_opt = r5_opt(f"{tmp.name}/run", f"{tmp.name}/val")
-    run_opt["train"]["val_freq"] = 10
-    run_opt["logger"].update(print_freq=5, save_checkpoint_freq=10)
+    run_opt["train"]["val_freq"] = 5
+    run_opt["logger"].update(print_freq=5, save_checkpoint_freq=5)
     logging.getLogger("base").setLevel(logging.INFO)
-    # probes (raw and EMA each): 0, 10, 20; after resuming, 25
+    # probes (raw and EMA each): 0, 5, 10; after resuming, 13; each run's
+    # validator captures its bucket once (3 launches of its warm-up)
     t0 = time.perf_counter()
-    last = count.run("train_torch.run, 20 steps", 3 * windows * 6,
-                     lambda: train_script.run(run_opt, steps=20))
+    last = count.run("train_torch.run, 10 steps", 3 * windows * 6 + 3,
+                     lambda: train_script.run(run_opt, steps=10))
     t1 = time.perf_counter()
-    last2 = count.run("train_torch.run, resume to 25", 3 * windows * 2,
-                      lambda: train_script.run(run_opt, steps=25,
+    last2 = count.run("train_torch.run, resume to 13", 3 * windows * 2 + 3,
+                      lambda: train_script.run(run_opt, steps=13,
                                                resume=True))
     t2 = time.perf_counter()
     text = Path(f"{tmp.name}/run/train.log").read_text()
     curve = [json.loads(line)["step"] for line in
              Path(f"{tmp.name}/run/val_curve.jsonl").read_text().splitlines()]
-    if (last, last2) != (20, 25) or "resumed at step 20" not in text \
-            or curve != [0, 10, 20, 25]:
+    if (last, last2) != (10, 13) or "resumed at step 10" not in text \
+            or curve != [0, 5, 10, 13]:
         raise AssertionError(f"train script: ended at {last}, {last2}; "
                              f"probes at {curve}")
-    log(f"  run 1: steps 1-20 in {t1 - t0:.1f} s; run 2 resumed at step 20, "
-        f"ended at 25 in {t2 - t1:.1f} s (validation, init and checkpoints "
+    log(f"  run 1: steps 1-10 in {t1 - t0:.1f} s; run 2 resumed at step 10, "
+        f"ended at 13 in {t2 - t1:.1f} s (validation, init and checkpoints "
         f"included); probes at steps {curve}")
     for line in text.splitlines():
         if " step " in line or "val @" in line:
@@ -1910,7 +2065,7 @@ def ddp_phase(opt: dict, card: str) -> None:
     try:
         models = {}
         for name, parallel in (("ddp", True), ("one", False)):
-            m = VideoSRModel(fixed, parallel=parallel)
+            m = VideoSRModel(fixed, parallel=parallel, compiled=False)
             m.init_params(data[0]["LQs"], data[0]["times"], seed=0)
             models[name] = m
         for i, batch in enumerate(data):
@@ -1937,11 +2092,11 @@ def ddp_phase(opt: dict, card: str) -> None:
         log(f"  largest per-parameter gap after step 3: {worst[0]}: "
             f"{worst[1]:.3e}")
         ms = {"ddp": [], "one": []}
-        for _ in range(5):
+        for _ in range(3):
             for name, m in models.items():
                 m.feed_data(data[0])
                 ms[name].append(timed_step(m)[1]["step"])
-        log(f"  ms per step, median of 5 alternating, x4 bucket B 4: DDP "
+        log(f"  ms per step, median of 3 alternating, x4 bucket B 4: DDP "
             f"{np.median(ms['ddp']):.1f} (runs "
             f"{', '.join(f'{v:.1f}' for v in ms['ddp'])}), one process "
             f"{np.median(ms['one']):.1f} (runs "
@@ -2755,8 +2910,11 @@ def main() -> int:
             f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms [{card}]")
         return 0
 
+    log(f"    phases 1-3: {time.perf_counter() - t_start:.1f} s")
+    t4 = time.perf_counter()
     log("[4] main path: InferencePipeline.render_window, trained weights")
     launches, dcn_main = main_path(card)
+    log(f"    phase 4: {time.perf_counter() - t4:.1f} s")
     dcn_launches = [dcn_main, 0]  # main_path's counted windows
 
     def add(count):
@@ -2764,15 +2922,21 @@ def main() -> int:
         dcn_launches[1] += count.dcn[1]
         return count.total
 
+    t5 = time.perf_counter()
     log("[5a] kernel vs plain at the chunked stages' shapes")
     err = max(err, slice_kernel_checks(device))
     launches += add(slice_phase(card, device))
+    log(f"    phase 5: {time.perf_counter() - t5:.1f} s")
 
+    t7 = time.perf_counter()
     log("[7a] kernel vs plain at the model zoo's six nets, then timed")
     err = max(err, zoo_kernel_phase(device, peaks))
     launches += add(zoo_phase(card, device))
+    log(f"    phase 7: {time.perf_counter() - t7:.1f} s")
 
+    t8 = time.perf_counter()
     launches += add(train_phase(card, device))
+    log(f"    phase 8: {time.perf_counter() - t8:.1f} s")
 
     t9 = time.perf_counter()
     launches += add(parallel_phase(card, device))

@@ -21,13 +21,19 @@ ones and the better of the two is kept. Runs on a CUDA GPU and raises
 where there is none unless ``--device cpu`` is given. ``run`` is the body,
 callable with an options dict.
 
+On a card the train step (forward, backward, the optimizer's update and
+the EMA) is one CUDA graph per scale bucket, captured at the bucket's first
+step and replayed, and the validator's probes replay their pipelines'
+graphs; ``--eager`` runs both op by op (``compiled=False``).
+
 ``--parallel`` trains data-parallel, one process per device, under
 ``torch.distributed.run`` (it reads ``RANK``, ``WORLD_SIZE`` and
 ``LOCAL_RANK``; NCCL between cards, gloo with ``--device cpu``): each
 rank's loader takes every ``world``-th index of the sampler and
 ``batch_size / world`` samples per batch, so that the ranks' shares make
 up the global batch of world size 1. Rank 0 writes ``train.log``, the
-tensorboard events, the checkpoints and runs the validation probes.
+tensorboard events, the checkpoints and runs the validation probes. The
+data-parallel step runs op by op.
 """
 
 import argparse
@@ -43,19 +49,21 @@ import numpy as np
 
 
 def run(opt: dict, steps=None, resume: bool = False, device=None,
-        parallel: bool = False) -> int:
+        parallel: bool = False, compiled=None) -> int:
     """Train by the options dict ``opt`` (the schema of the YAML configs)
     up to ``steps`` (default ``train.niter``); ``resume`` continues from the
     latest checkpoint in ``path.models``; ``parallel`` trains
-    data-parallel over the process group (see the module's docstring).
-    Returns the last step."""
+    data-parallel over the process group (see the module's docstring);
+    ``compiled`` (None or False) is handed to ``VideoSRModel`` and the
+    validator. Returns the last step."""
     from stif_tpu_torch.data.datasets import create_train_dataset
     from stif_tpu_torch.data.loader import DataLoader, ShardedIterSampler
     from stif_tpu_torch.parallel.distributed import barrier
     from stif_tpu_torch.train.video_sr_model import VideoSRModel
 
     # raises first without a GPU
-    model = VideoSRModel(opt, device=device, parallel=parallel)
+    model = VideoSRModel(opt, device=device, parallel=parallel,
+                         compiled=compiled)
     main_rank = model.rank == 0
     sync = barrier if parallel else (lambda: None)
     log = logging.getLogger("base")
@@ -127,7 +135,8 @@ def run(opt: dict, steps=None, resume: bool = False, device=None,
                                   root=vopt.get("root", "runs/val_data"),
                                   n_scenes=int(vopt.get("n_scenes", 3)),
                                   device=model.device,
-                                  scale_probes=vopt.get("scale_probes") or ())
+                                  scale_probes=vopt.get("scale_probes") or (),
+                                  compiled=compiled)
             best = BestTracker(models_dir)
             log.info("validation every %d steps on %s (keep-best on t0+t0.5 "
                      "Y-PSNR)", val_freq, validator.root)
@@ -225,6 +234,9 @@ def main(argv=None):
     ap.add_argument("--parallel", action="store_true",
                     help="data parallel, one process per device, under "
                          "python -m torch.distributed.run")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the train step and the validator's probes op "
+                         "by op, not as CUDA graphs")
     args = ap.parse_args(argv)
 
     from stif_tpu_torch.utils.config import parse_options
@@ -234,7 +246,8 @@ def main(argv=None):
     opt = parse_options(args.opt, is_train=True)
     try:
         return run(opt, steps=args.steps, resume=args.resume,
-                   device=args.device, parallel=args.parallel)
+                   device=args.device, parallel=args.parallel,
+                   compiled=False if args.eager else None)
     finally:
         if args.parallel:
             import torch.distributed as dist

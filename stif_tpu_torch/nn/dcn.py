@@ -17,7 +17,7 @@ from stif_tpu_torch.ops.deform_conv import (deform_conv2d,
                                             split_offset_mask)
 
 
-class DCNSep(nn.Module):
+class DCNSep(nn.Module, capture.Switched):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 1,
                  dilation: int = 1, deformable_groups: int = 8,
@@ -42,6 +42,9 @@ class DCNSep(nn.Module):
             torch.empty(out_channels, in_channels, k, k).uniform_(-stdv, stdv))
         self.bias = nn.Parameter(torch.zeros(out_channels))
 
+    def route_flags(self) -> tuple:
+        return (self.use_kernel,)
+
     def forward(self, x: torch.Tensor, fea: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, C) features to convolve; fea: the features that
         produce the offsets and mask."""
@@ -60,9 +63,10 @@ def set_dcn_kernel(model: nn.Module, on: bool) -> None:
     """Run every ``DCNSep`` of ``model`` through the DCN op
     (``deform_conv2d``: the kernels on the card), or, with ``on`` False,
     through its plain PyTorch form differentiated by autograd: the yardstick
-    the kernels are held against on the card. Captured programs are stale
-    after it (``ops/capture.py``)."""
+    the kernels are held against on the card. A change makes a new program
+    key (``ops/capture.py``)."""
     for m in model.modules():
         if isinstance(m, DCNSep):
+            before = m.route_flags()
             m.use_kernel = on
-    capture.bump_route()
+            capture.switched(capture.epochs_of(m), before, m.route_flags())

@@ -37,7 +37,7 @@ class SineLayer(nn.Module):
         nn.init.uniform_(self.linear.weight, -bound, bound)
 
 
-class Siren(nn.Module):
+class Siren(nn.Module, capture.Switched):
     """net = [Sine(first), Sine x hidden_layers, Linear].
 
     Which form runs, in the JAX module's order of precedence:
@@ -86,6 +86,9 @@ class Siren(nn.Module):
         self.compute_dtype = compute_dtype
         self.split_first = split_first
         self._uses_kernel()  # a conflicting configuration fails here
+
+    def route_flags(self) -> tuple:
+        return (self.fused,)
 
     def _uses_kernel(self) -> bool:
         if not self.fused or self.compute_dtype is not None:
@@ -143,8 +146,9 @@ class Siren(nn.Module):
 def set_fused(model: nn.Module, fused: bool) -> None:
     """Turn the fused kernel on or off in every ``Siren`` of ``model``; a
     net with ``split_first`` stays off, since the kernel has no split-K
-    form. Captured programs are stale after it (``ops/capture.py``)."""
+    form. A change makes a new program key (``ops/capture.py``)."""
     for m in model.modules():
         if isinstance(m, Siren):
+            before = m.route_flags()
             m.fused = fused and not m.split_first
-    capture.bump_route()
+            capture.switched(capture.epochs_of(m), before, m.route_flags())

@@ -64,6 +64,7 @@ _DEFAULT_SHIFT_BOUND = None  # None: each call site's shift_bound
 _DEFAULT_WINDOW = (8, 8)     # kept for the JAX package's API; no effect here
 IMPLS = ("patch", "dense", "window")
 _META = 29  # longs the C entries read (csrc/deform_conv.cu)
+_ROUTE_EPOCHS = {}  # ``set_dcn_impl``'s epochs (``ops/capture.py``)
 
 
 def _pair(v: IntPair) -> Tuple[int, int]:
@@ -75,16 +76,24 @@ def set_dcn_impl(impl: str, shift_bound: int = None, window=None) -> None:
     ``"dense"`` or ``"window"``. ``shift_bound`` overrides every auto call
     site's bound (check it with ``dcn_shift_stats`` first); ``window`` sets
     the JAX package's (Wy, Wx) tap-cluster window, which changes nothing
-    here. Captured programs are stale after it (``ops/capture.py``)."""
+    here. A change makes a new program key (``ops/capture.py``)."""
     global _DEFAULT_IMPL, _DEFAULT_SHIFT_BOUND, _DEFAULT_WINDOW
     if impl not in IMPLS:
         raise ValueError(f"set_dcn_impl: impl must be one of {IMPLS}, "
                          f"got {impl!r}")
+    before = (_DEFAULT_IMPL, _DEFAULT_SHIFT_BOUND)
     _DEFAULT_IMPL = impl
     _DEFAULT_SHIFT_BOUND = shift_bound
     if window is not None:
         _DEFAULT_WINDOW = (int(window[0]), int(window[1]))
-    capture.bump_route()
+    capture.switched(_ROUTE_EPOCHS, before, (impl, shift_bound))
+
+
+def dcn_route() -> tuple:
+    """The process-wide part of a program's key (``ops/capture.py``): the
+    defaults of ``impl="auto"`` DCN calls and their epoch."""
+    flags = (_DEFAULT_IMPL, _DEFAULT_SHIFT_BOUND)
+    return flags, _ROUTE_EPOCHS.get(flags, 0)
 
 
 def split_offset_mask(conv_out: torch.Tensor, deformable_groups: int,

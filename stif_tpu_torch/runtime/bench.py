@@ -286,7 +286,10 @@ def bench_batched(model, groups: np.ndarray, times: Sequence[float],
     caches as ``InferencePipeline`` takes ``compiled`` (the chunked mode's
     ``gen_feat`` through one, its decoder's passes through a sibling). The
     groups are staged on the device before the clock; the clock stops when
-    the device has finished the last group (``bench.py:187-259``). Returns
+    the device has finished the last group (``bench.py:187-259``). The
+    chunked mode's decoder hands back float frames on the host, quantised
+    after the clock stops: ``bench.py:223-228`` times no quantisation
+    there (``full`` and ``tsplit`` quantise on the device). Returns
     ``fps``, ``outs`` (uint8 (nt, B, 4H, 4W, 3) per group, on the host),
     ``peak_gib`` and ``programs`` (every program's stats, the decoder's
     after ``gen_feat``'s in the chunked mode; None when eager)."""
@@ -325,8 +328,7 @@ def bench_batched(model, groups: np.ndarray, times: Sequence[float],
             feat = (model.gen_feat(xb) if programs is None else
                     programs.run("batched gen_feat", model.gen_feat, (xb,),
                                  model))
-            out = decoder.decode(feat, xb, t, (hh, ww))
-            return quantize(torch.from_numpy(out))
+            return decoder.decode(feat, xb, t, (hh, ww))
 
     with torch.inference_mode():
         staged = [torch.from_numpy(g).to(device) for g in groups]
@@ -339,7 +341,8 @@ def bench_batched(model, groups: np.ndarray, times: Sequence[float],
         _sync(device)
         dt = (time.perf_counter() - t0) / len(staged)
         peak = _peak_gib(device)
-        outs = [o.cpu().numpy() for o in outs]
+        outs = [(quantize(torch.from_numpy(o)) if decoder is not None
+                 else o.cpu()).numpy() for o in outs]
     stats = _programs(programs)
     if stats is not None and decoder is not None:
         stats += decoder.programs.stats()

@@ -6,7 +6,9 @@ per (shape, nt, out_size), ``:164-168`` for TMNet, ``:185-189`` for
 A JAX window is one dispatch of one compiled program. Here a ``Program`` is
 one captured ``torch.cuda.CUDAGraph`` of a callable at one input shape. The
 ``ChunkedDecoder``'s passes are programs too (``runtime/chunked.py``, the
-counterpart of ``stif_tpu/runtime/chunked.py:68-87``). The
+counterpart of ``stif_tpu/runtime/chunked.py:68-87``), and so is the train
+step with its EMA (``train/trainer.py:make_train_step``, the counterpart of
+``stif_tpu/train/video_sr_model.py:105, 113``). The
 first call of a key runs the callable eagerly once: that warm-up builds the
 bucket's constants (``ops/constants.py``), the cuDNN and cuBLAS handles and
 workspaces and the kernels' shared-memory attributes. The call then captures
@@ -26,14 +28,20 @@ The key is the JAX key and the model's route:
   static arguments (``out_size``, ``test``, ``local_ensemble``). A resident
   tensor at a new address is a new key: a graph never replays over memory
   its caller has let go of;
+- the ``data_ptr`` of every tensor of the callable's ``state``: what a
+  train step updates in place (parameters, gradients, optimizer state,
+  EMA). The key's first call puts the state back after the warm-up and
+  after the capture, so that the call makes one update, the replay's;
 - the route: the ``data_ptr``, shape and dtype of every parameter and
-  buffer of the model, and the route epoch of ``ops/capture.py``. A graph
-  holds the kernels and pointers of its capture: ``set_fused``,
-  ``set_dcn_kernel`` and ``set_dcn_impl`` bump the epoch, and a model moved
-  with ``to()`` has new pointers, so either makes a new key (and the stale
-  programs are dropped). Weights loaded in place (``load_state_dict``,
-  ``copy_``, an optimizer step) keep their addresses: the next replay reads
-  the new values, with no new capture.
+  buffer of the model, each switched module's flags and the process-wide
+  DCN defaults with their epochs (``ops/capture.py``). A graph holds the
+  kernels and pointers of its capture: a ``set_fused``, ``set_dcn_kernel``
+  or ``set_dcn_impl`` that changes a flag, and a model moved with ``to()``
+  (new pointers), make a new key (and the stale programs are dropped); a
+  switch and its reverse with no call between leave the key as it was.
+  Weights loaded in place (``load_state_dict``, ``copy_``, an optimizer
+  step) keep their addresses: the next replay reads the new values, with
+  no new capture.
 
 What a program keeps, and what its caller must keep to:
 
@@ -72,6 +80,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from stif_tpu_torch.ops import capture as capture_scope
+from stif_tpu_torch.ops.deform_conv import dcn_route
 
 CAPTURE_ERROR_MODE = "thread_local"
 
@@ -90,11 +99,18 @@ CaptureStep = Callable[[Callable, Tuple[torch.Tensor, ...], "ProgramCache"],
 
 def route(model: torch.nn.Module) -> tuple:
     """What a graph of ``model``'s forward reads by address or was built
-    for: every parameter's and buffer's pointer, shape and dtype, and the
-    route epoch."""
-    tensors = list(model.parameters()) + list(model.buffers())
-    return (capture_scope.route_epoch(),
-            tuple((v.data_ptr(), tuple(v.shape), v.dtype) for v in tensors))
+    for: every parameter's and buffer's pointer, shape and dtype, each
+    switched module's flags and the process-wide DCN defaults, with their
+    epochs (``ops/capture.py``). One walk over the modules."""
+    flags, tensors = [], []
+    for m in model.modules():
+        if isinstance(m, capture_scope.Switched):
+            flags.append(capture_scope.route_of(m))
+        tensors += m._parameters.values()
+        tensors += m._buffers.values()
+    return (dcn_route(), tuple(flags),
+            tuple((v.data_ptr(), tuple(v.shape), v.dtype) for v in tensors
+                  if v is not None))
 
 
 @contextlib.contextmanager
@@ -207,19 +223,25 @@ class ProgramCache:
 
     def run(self, name: str, fn: Callable, inputs: Sequence[torch.Tensor],
             model: torch.nn.Module, static: Optional[dict] = None,
-            resident: Sequence[torch.Tensor] = ()) -> Outputs:
+            resident: Sequence[torch.Tensor] = (),
+            state: Sequence[torch.Tensor] = ()) -> Outputs:
         """``fn(*inputs, *resident, **static)``, through the program of its
         key: a replay, or on the key's first call a warm-up, a capture and
         a replay. ``inputs`` are copied into the program's static inputs at
         each call, ``resident`` ones are read in place (see the module
-        docstring). Returns the program's static outputs (read or copy them
-        before the next call of this cache)."""
+        docstring). ``state`` are the tensors ``fn`` updates in place (a
+        train step's parameters, gradients, optimizer state and EMA): their
+        addresses enter the key, and a key's first call leaves their values
+        as they were before its warm-up and capture, so that its replay
+        makes the one update of the call. Returns the program's static
+        outputs (read or copy them before the next call of this cache)."""
         static = dict(static or {})
         resident = tuple(resident)
         key = (name, model,
                tuple((tuple(v.shape), v.dtype) for v in inputs),
                tuple((v.data_ptr(), tuple(v.shape), v.stride(), v.dtype)
                      for v in resident),
+               tuple(v.data_ptr() for v in state),
                tuple(sorted(static.items())), route(model))
         with self._scope():
             program = self.programs.get(key)
@@ -230,7 +252,7 @@ class ProgramCache:
                              static.items())))
                 program = self._compile(
                     label, lambda *xs: fn(*xs, **static), tuple(inputs),
-                    resident)
+                    resident, tuple(state))
                 self.programs[key] = program
             return program(*inputs)
 
@@ -253,11 +275,21 @@ class ProgramCache:
 
     def _compile(self, label: str, fn: Callable,
                  inputs: Tuple[torch.Tensor, ...],
-                 resident: Tuple[torch.Tensor, ...] = ()) -> Program:
+                 resident: Tuple[torch.Tensor, ...] = (),
+                 state: Tuple[torch.Tensor, ...] = ()) -> Program:
         statics = tuple(torch.empty_like(v) for v in inputs)
         for s, v in zip(statics, inputs):
             s.copy_(v)
         args = statics + resident
+        # detached: a clone of a parameter would keep its AccumulateGrad
+        # node alive, made on this stream, and the capture's backward would
+        # then wait on this stream, which is not part of the capture
+        saved = [v.detach().clone() for v in state]
+
+        def restore():
+            with torch.no_grad():
+                torch._foreach_copy_(list(state), saved)
+
         with _collector_paused():
             t0 = time.perf_counter()
             if self.cuda:
@@ -272,9 +304,13 @@ class ProgramCache:
                 reserved = torch.cuda.memory_reserved(self.device)
             else:
                 fn(*args)
+            if state:
+                restore()
             t1 = time.perf_counter()
-            with capture_scope.scope() as recording:
+            with capture_scope.scope(self.stream) as recording:
                 replay, output = self.capture(fn, args, self)
+            if state:  # a capture step that runs ``fn`` (the CPU's double)
+                restore()
         outputs = output if isinstance(output, tuple) else (output,)
         if not outputs or not all(isinstance(v, torch.Tensor)
                                   for v in outputs):

@@ -10,12 +10,21 @@ restart schedule. The JAX package writes the optimizer as an optax chain;
 - ``optax.clip_by_global_norm`` (only when ``grad_clip`` > 0): gradients are
   scaled by ``max_norm / norm`` when ``norm >= max_norm``, as
   ``(g / norm) * max_norm``; no epsilon;
-- ``optax.scale_by_adam`` (eps 1e-8, no eps_root): ``torch.optim.Adam``
-  with no weight decay;
+- ``optax.scale_by_adam`` (eps 1e-8, no eps_root): the moments
+  ``b * m + (1 - b) * g``, bias-corrected by the update count on the
+  device, ``m_hat / (sqrt(v_hat) + eps)``; no weight decay;
 - ``optax.scale_by_schedule``: the lr is the schedule at the update count
   *before* the step, so under warmup the first update has lr 0.
 
 The logged ``grad_norm`` is the global norm before clipping.
+
+The update is written with ``torch._foreach_*`` ops on tensors at fixed
+addresses: the lr in a 0-dim tensor filled on the host before each update,
+the update count on the device, the moments and the gradients allocated
+once (``zero_grad`` zeroes them in place, and the backward accumulates into
+them). So the same code runs eagerly on any device and inside a captured
+CUDA graph (``make_train_step(programs=)``), where each replay reads the lr
+and writes the parameters, moments and count where the capture found them.
 
 ``make_parallel_train_step`` is the data-parallel step (the JAX package's
 mesh-sharded one): DDP over one process per device, each rank on its rows
@@ -66,7 +75,9 @@ def global_norm(grads) -> torch.Tensor:
 
 class Optimizer:
     """Global-norm clip, Adam and the closed-form schedule, stepped by the
-    update count. ``step(count)`` returns the pre-clip global norm."""
+    update count (see the module docstring). ``step(count)`` fills the lr
+    for update ``count`` and runs ``update``; both return the pre-clip
+    global norm."""
 
     def __init__(self, params, cfg: TrainConfig):
         self.params = [p for p in params if p.requires_grad]
@@ -75,12 +86,38 @@ class Optimizer:
                                      cfg.restart_weights, cfg.eta_min),
             cfg.warmup_iter, cfg.lr)
         self.grad_clip = float(cfg.grad_clip or 0.0)
-        self.adam = torch.optim.Adam(self.params, lr=0.0,
-                                     betas=(cfg.beta1, cfg.beta2), eps=1e-8,
-                                     weight_decay=0.0)
+        self.betas = (float(cfg.beta1), float(cfg.beta2))
+        self.eps = 1e-8
+        dev = self.params[0].device
+        self.lr = torch.zeros((), device=dev)
+        self.count = torch.zeros((), device=dev)  # updates made
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+    @property
+    def grads(self):
+        return [p.grad for p in self.params]
+
+    def state(self) -> list:
+        """Every tensor ``update`` and ``zero_grad`` write: a captured step
+        writes to them by address."""
+        return [self.count, *self.params, *self.grads, *self.mu, *self.nu]
+
+    def set_lr(self, count: int) -> None:
+        """The lr of update ``count``, into ``self.lr`` (no host sync)."""
+        self.lr.fill_(self.schedule(int(count)))
 
     def step(self, count: int) -> torch.Tensor:
-        grads = [p.grad for p in self.params if p.grad is not None]
+        self.set_lr(count)
+        return self.update()
+
+    @torch.no_grad()
+    def update(self) -> torch.Tensor:
+        """The clip, Adam and the step at ``self.lr``, all on the device."""
+        grads = self.grads
         norm = global_norm(grads)
         if self.grad_clip > 0:
             # (g / norm) * max_norm where norm >= max_norm, else g / 1 * 1;
@@ -90,19 +127,59 @@ class Optimizer:
             torch._foreach_div_(grads, torch.where(clip, norm, one))
             torch._foreach_mul_(grads, torch.where(clip, self.grad_clip,
                                                    one))
-        for group in self.adam.param_groups:
-            group["lr"] = self.schedule(int(count))
-        self.adam.step()
+        b1, b2 = self.betas
+        self.count.add_(1)
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_add_(self.mu, grads, alpha=1 - b1)
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1 - b2)
+        step = torch._foreach_div(self.mu, 1 - b1 ** self.count)
+        denom = torch._foreach_div(self.nu, 1 - b2 ** self.count)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_div_(step, denom)
+        torch._foreach_mul_(step, -self.lr)
+        torch._foreach_add_(self.params, step)
         return norm
 
     def zero_grad(self) -> None:
-        self.adam.zero_grad(set_to_none=True)
+        """Zero every gradient in place (their addresses stay)."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        torch._foreach_zero_(self.grads)
 
     def state_dict(self) -> dict:
-        return self.adam.state_dict()
+        """``torch.optim.Adam``'s layout, which the port's checkpoints
+        hold: per parameter index its ``step``, ``exp_avg`` and
+        ``exp_avg_sq``. Reads the count from the device."""
+        step = self.count.cpu()
+        return {
+            "state": {i: {"step": step.clone(), "exp_avg": m.clone(),
+                          "exp_avg_sq": v.clone()}
+                      for i, (m, v) in enumerate(zip(self.mu, self.nu))},
+            "param_groups": [{
+                "lr": float(self.lr), "betas": self.betas, "eps": self.eps,
+                "weight_decay": 0.0, "amsgrad": False, "maximize": False,
+                "foreach": None, "capturable": False,
+                "differentiable": False, "fused": None,
+                "params": list(range(len(self.params)))}]}
 
+    @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
-        self.adam.load_state_dict(state)
+        """Copy a ``state_dict`` (this one's, or ``torch.optim.Adam``'s,
+        which holds no entry for a parameter that never had a gradient)
+        into the optimizer's tensors in place."""
+        entries = state["state"]
+        for i, (m, v) in enumerate(zip(self.mu, self.nu)):
+            e = entries.get(i)
+            m.copy_(e["exp_avg"]) if e else m.zero_()
+            v.copy_(e["exp_avg_sq"]) if e else v.zero_()
+        steps = {float(e["step"]) for e in entries.values()}
+        if len(steps) > 1:
+            raise ValueError(f"parameters at different update counts: "
+                             f"{sorted(steps)}")
+        self.count.fill_(steps.pop() if steps else 0.0)
 
 
 def make_optimizer(params, cfg: TrainConfig):
@@ -131,34 +208,99 @@ def make_loss_fn(model: torch.nn.Module, cfg: TrainConfig) -> Callable:
     return loss_fn
 
 
+class EMA:
+    """An exponential moving average of ``model``'s state dict (parameters
+    and buffers), ``d * e + (1 - d) * p`` at each ``update``, in tensors
+    allocated once: ``load`` copies into them in place, so a captured step
+    that updates them keeps writing where they are."""
+
+    def __init__(self, model: torch.nn.Module, decay: float):
+        self.model = model
+        self.decay = float(decay)
+        self.params = {k: v.detach().clone()
+                       for k, v in model.state_dict().items()}
+
+    def state(self) -> list:
+        return list(self.params.values())
+
+    @torch.no_grad()
+    def update(self) -> None:
+        d = self.decay
+        ema = self.state()
+        torch._foreach_mul_(ema, d)
+        torch._foreach_add_(ema, list(self.model.state_dict().values()),
+                            alpha=1.0 - d)
+
+    @torch.no_grad()
+    def load(self, params: dict) -> None:
+        """Copy ``params`` (a state dict of the model's schema) in."""
+        if params.keys() != self.params.keys():
+            raise KeyError("the EMA's keys differ from the state dict's: "
+                           f"{sorted(params.keys() ^ self.params.keys())}")
+        for k, v in self.params.items():
+            v.copy_(params[k])
+
+
+def _no_mark(_: str) -> None:
+    pass
+
+
 def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
-                    cfg: TrainConfig) -> Callable:
+                    cfg: TrainConfig, programs=None,
+                    ema: Optional[EMA] = None) -> Callable:
     """``train_step(batch, count, mark=None) -> {'loss', 'grad_norm'}``
-    (0-dim tensors): forward, backward and the optimizer's update at update
-    count ``count``. ``mark``, when given, is called with 'forward',
-    'backward' and 'update' after each phase (a seam for timing)."""
+    (0-dim tensors): zero-grad, forward, backward, the optimizer's update
+    at update count ``count`` and then ``ema``'s update, if given. ``mark``,
+    when given, is called with 'forward', 'backward' and 'update' after
+    each phase (a seam for timing).
+
+    With ``programs`` (a ``runtime.compiled.ProgramCache``) the step is one
+    program per bucket (the shapes of ``lqs``, ``gt`` and ``times``): the
+    bucket's first step runs it eagerly once, captures it and replays it,
+    and every later step copies the batch into the program's static inputs
+    and replays it, the state it updates left where the capture found it
+    (``Optimizer.state``, ``EMA.state``: their addresses are in the key).
+    The outputs are the program's: read them before the next step. A
+    replay has no phases to ``mark``: that raises ``ValueError``."""
     loss_fn = make_loss_fn(model, cfg)
+
+    def body(lqs, gt, times, mark=_no_mark):
+        optimizer.zero_grad()
+        loss = loss_fn({"lqs": lqs, "gt": gt, "times": times})
+        mark("forward")
+        loss.backward()
+        mark("backward")
+        gnorm = optimizer.update()
+        if ema is not None:
+            ema.update()
+        mark("update")
+        return loss.detach(), gnorm
 
     def train_step(batch, count: int,
                    mark: Optional[Callable[[str], None]] = None
                    ) -> Dict[str, torch.Tensor]:
-        mark = mark or (lambda _: None)
-        optimizer.zero_grad()
-        loss = loss_fn(batch)
-        mark("forward")
-        loss.backward()
-        mark("backward")
-        gnorm = optimizer.step(count)
-        mark("update")
-        return {"loss": loss.detach(), "grad_norm": gnorm.detach()}
+        optimizer.set_lr(count)
+        args = (batch["lqs"], batch["gt"], batch["times"])
+        if programs is None:
+            loss, gnorm = body(*args, mark or _no_mark)
+        elif mark is not None:
+            raise ValueError("a replayed train step has no phases to mark; "
+                             "time them on an eager step (compiled=False)")
+        else:
+            state = optimizer.state() + ([] if ema is None else ema.state())
+            loss, gnorm = programs.run("train_step", body, args, model,
+                                       state=state)
+        return {"loss": loss, "grad_norm": gnorm}
 
     return train_step
 
 
 def make_parallel_train_step(model: torch.nn.Module, optimizer: Optimizer,
                              cfg: TrainConfig, mesh,
-                             per_sample_times: bool = False) -> Callable:
-    """Data-parallel ``train_step(batch, count, mark=None)``: ``model``
+                             per_sample_times: bool = False,
+                             ema: Optional[EMA] = None) -> Callable:
+    """Data-parallel ``train_step(batch, count, mark=None)``, op by op (no
+    CUDA graph yet: ``ROADMAP.md`` Queue 1 item 23): ``model``
     wrapped in ``DistributedDataParallel``, one process per device of the
     mesh's ``data`` axis (NCCL on the card, gloo on the CPU; the process
     group must exist). Each rank is handed its own ``B / world`` rows of
@@ -172,7 +314,7 @@ def make_parallel_train_step(model: torch.nn.Module, optimizer: Optimizer,
     mean-reduced one ('l1', 'l2', 'lp', equal rows per rank) is not. The
     logged ``loss`` is the global one (the ranks' sum, or their mean);
     ``grad_norm`` and the clip follow DDP's all-reduce, so they are global
-    already."""
+    already. ``ema`` is updated after the optimizer, on every rank."""
     from torch.nn.parallel import DistributedDataParallel
 
     if not dist.is_initialized():
@@ -204,6 +346,8 @@ def make_parallel_train_step(model: torch.nn.Module, optimizer: Optimizer,
         (loss * world if reduction == "sum" else loss).backward()
         mark("backward")
         gnorm = optimizer.step(count)
+        if ema is not None:
+            ema.update()
         mark("update")
         total = loss.detach().clone()
         dist.all_reduce(total)

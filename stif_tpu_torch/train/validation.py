@@ -8,6 +8,14 @@ runs the Vid4-protocol harness ``eval_space_time_sr`` through an
 ``InferencePipeline`` (under ``inference_mode``), so keep-best selects on
 what serving computes. The dev split (seed0 880_000) is disjoint from the
 held-out eval split (seed0 990_000, ``scripts/eval_model_torch.py``).
+
+Its pipelines replay their buckets' CUDA graphs on a card (``compiled``, as
+``InferencePipeline`` takes it; a ``ProgramCache`` given is the x4
+pipeline's, each scale probe's pipeline gets a sibling of it). The state
+dict is loaded in place, so a probe after the first is a replay that reads
+the new weights, as the JAX validator's fresh params are "a device_put, not
+a recompile". Each pipeline's pool stays allocated between probes
+(``stats``).
 """
 
 from __future__ import annotations
@@ -36,7 +44,8 @@ class Validator:
 
     def __init__(self, net: torch.nn.Module, root: str = "runs/val_data",
                  n_scenes: int = 3, n_frames: int = 12, size=(144, 192),
-                 seed0: int = 880_000, device=None, scale_probes=()):
+                 seed0: int = 880_000, device=None, scale_probes=(),
+                 compiled=None):
         from stif_tpu_torch.data.synthetic import render_eval_folders
 
         self.net = copy.deepcopy(net).eval()
@@ -48,6 +57,7 @@ class Validator:
                                         n_frames=n_frames, size=size,
                                         seed0=seed0)
         self.device = device
+        self.compiled = compiled
         self._pipe = None
         # extra 1-scene t=0 probes at other spatial scales, logged into the
         # val curve beside their bicubic bars, not part of the score
@@ -59,11 +69,11 @@ class Validator:
         from stif_tpu_torch.runtime import InferencePipeline
         from stif_tpu_torch.runtime.eval import eval_space_time_sr
 
-        self.net.load_state_dict(params, strict=True)
+        self.net.load_state_dict(params, strict=True)  # in place
         if self._pipe is None:
-            # eager: the validator's forward is not captured as a graph
             self._pipe = InferencePipeline(self.net, scale=4, bucket=8,
-                                           device=self.device, compiled=False)
+                                           device=self.device,
+                                           compiled=self._compiled())
         res = eval_space_time_sr(self._pipe, self.root, times=(0.5, 0.0))
         log.info("val: x4 protocol done")
         t0 = float(res.psnr_by_time[0.0])
@@ -79,6 +89,23 @@ class Validator:
         for s in self.scale_probes:
             out.update(self._scale_probe(s))
         return out
+
+    def _compiled(self):
+        """A new pipeline's ``compiled``: a cache given goes to the first
+        pipeline, each later one gets a sibling (a pool of its own)."""
+        from stif_tpu_torch.runtime import ProgramCache
+
+        if isinstance(self.compiled, ProgramCache) and self._pipe is not None:
+            return self.compiled.sibling()
+        return self.compiled
+
+    def stats(self) -> dict:
+        """Each pipeline's programs (``ProgramCache.stats``: replays,
+        warm-up and capture ms, pool bytes, launches), None when eager."""
+        pipes = {"x4": self._pipe, **{f"x{s}_probe": p for s, p in
+                                      self._probe_pipes.items()}}
+        return {k: (None if p is None or p.programs is None
+                    else p.programs.stats()) for k, p in pipes.items()}
 
     def _scale_probe(self, s: int) -> dict:
         """t=0 Y-PSNR at spatial scale ``s`` on the first dev scene (and its
@@ -108,7 +135,7 @@ class Validator:
         if s not in self._probe_pipes:
             self._probe_pipes[s] = InferencePipeline(
                 self.net, scale=s, bucket=4, device=self.device,
-                compiled=False)
+                compiled=self._compiled())
         pred = self._probe_pipes[s].render_window(np.stack([lr[0], lr[1]]),
                                                   [0.0])
         return {f"x{s}_t0": float(ypsnr(pred[0], gt[0])), f"x{s}_bi_t0": bi}

@@ -14,8 +14,21 @@ parameters (``train.ema_decay``, 0 = off), ``d * e + (1 - d) * p`` after
 every step, is kept outside the optimizer checkpoint and saved beside it as
 ``ema_params_<step>.pth``, two deep.
 
+The step, the optimizer's update and the EMA are one program per scale
+bucket (``trainer.make_train_step(programs=)``), the counterpart of the JAX
+package's jitted step and EMA: ``compiled`` None gives CUDA graphs on a
+card and the eager step on another device, False the eager step, True
+graphs (``ValueError`` off a card), or a ``ProgramCache`` of the caller's.
+Loads (``resume_training``, ``load_pth``) copy into the tensors a graph
+writes, in place; what the step updates is in the program's key, so a
+tensor put in place of one is a new capture, never a replay over memory
+let go of. After a step, ``p.grad`` holds that step's clipped gradient in
+a buffer allocated once. ``optimize_parameters`` fetches its logs to the
+host in one blocking copy; ``run_step`` leaves them on the device.
+
 With ``parallel`` the model trains data-parallel (DDP, one process per
-device; see ``trainer.make_parallel_train_step``): each rank is fed its own
+device; see ``trainer.make_parallel_train_step``), op by op: ``compiled``
+True or a cache raises ``NotImplementedError`` there. Each rank is fed its own
 rows of the global batch (``feed_data``), the EMA updates on every rank
 from the same parameters, and checkpoints and the EMA snapshots are written
 by rank 0 behind a barrier. State-dict keys carry no ``module.`` prefix, so
@@ -35,9 +48,10 @@ from stif_tpu_torch.nn.init import init_model_
 from stif_tpu_torch.nn.siren import set_fused
 from stif_tpu_torch.parallel.distributed import (barrier, join_process_group,
                                                  rank_and_world)
+from stif_tpu_torch.runtime.compiled import ProgramCache, program_cache
 from stif_tpu_torch.runtime.pipeline import resolve_device
 from stif_tpu_torch.train.checkpoints import CheckpointManager, load_params
-from stif_tpu_torch.train.trainer import (TrainConfig, make_optimizer,
+from stif_tpu_torch.train.trainer import (EMA, TrainConfig, make_optimizer,
                                           make_parallel_train_step,
                                           make_train_step)
 
@@ -75,14 +89,23 @@ class VideoSRModel:
     when CUDA is asked for or defaulted to. ``parallel``: data-parallel
     over the process group, joined from ``torch.distributed.run``'s
     environment when the process is in none (CUDA: this rank's
-    ``cuda:LOCAL_RANK``)."""
+    ``cuda:LOCAL_RANK``). ``compiled``: see the module docstring."""
 
-    def __init__(self, opt: dict, device=None, parallel: bool = False):
+    def __init__(self, opt: dict, device=None, parallel: bool = False,
+                 compiled=None):
         self.opt = opt
         self.device = resolve_device(device)
         self.parallel = parallel
+        if parallel and (compiled is True
+                         or isinstance(compiled, ProgramCache)):
+            raise NotImplementedError(
+                "the data-parallel step has no CUDA graph yet (ROADMAP.md "
+                "Queue 1 item 23); pass compiled=None or False with "
+                "parallel=True")
         if parallel:
             self.device = join_process_group(self.device)
+        self.programs = (None if parallel
+                         else program_cache(self.device, compiled))
         self.rank, self.world = rank_and_world() if parallel else (0, 1)
         self.net = define_g(opt)
         set_fused(self.net, False)
@@ -90,7 +113,7 @@ class VideoSRModel:
         self.cfg = train_config(opt)
         self.ema_decay = float((opt.get("train") or {}).get("ema_decay", 0.0)
                                or 0.0)
-        self.ema_params = None
+        self.ema = None
         self.optimizer = None
         self._step_fn = None
         self.step = 0
@@ -108,24 +131,28 @@ class VideoSRModel:
         fixed at construction (the JAX package inits from its shapes)."""
         init_model_(self.net, torch.Generator().manual_seed(int(seed)))
         self.optimizer, _ = make_optimizer(self.net.parameters(), self.cfg)
+        self.ema = (EMA(self.net, self.ema_decay) if self.ema_decay > 0
+                    else None)
+        if self.programs is not None:
+            self.programs.clear()  # the old state's programs
         if self.parallel:
             from stif_tpu_torch.parallel import default_mesh
 
             mesh = default_mesh(self.world, device_type=self.device.type)
             self._step_fn = make_parallel_train_step(
                 self.net, self.optimizer, self.cfg, mesh,
-                per_sample_times=np.ndim(example_times) == 2)
+                per_sample_times=np.ndim(example_times) == 2, ema=self.ema)
         else:
             self._step_fn = make_train_step(self.net, self.optimizer,
-                                            self.cfg)
+                                            self.cfg, self.programs,
+                                            self.ema)
         self.step = 0
-        if self.ema_decay > 0:
-            self.ema_params = self._params_copy()
         return self.net.state_dict()
 
-    def _params_copy(self) -> dict:
-        return {k: v.detach().clone()
-                for k, v in self.net.state_dict().items()}
+    @property
+    def ema_params(self) -> Optional[dict]:
+        """The EMA's state dict (its own tensors), or None with EMA off."""
+        return None if self.ema is None else self.ema.params
 
     # ------------------------------------------------------------- training
 
@@ -133,10 +160,14 @@ class VideoSRModel:
         """data: {'LQs': (B,N,h,w,3), 'GT': (B,nt,H,W,3), 'times': (nt,)
         shared or (B,nt) per sample}, NHWC (the reference's NCHW batches
         convert with ``from_torch_batch``); data-parallel, this rank's
-        rows."""
+        rows. On a card each array goes through page-locked memory by a
+        copy that does not block the host."""
         def dev(a):
-            return torch.as_tensor(np.asarray(a, np.float32),
-                                   device=self.device)
+            a = np.ascontiguousarray(a, np.float32)
+            if self.device.type != "cuda":
+                return torch.as_tensor(a, device=self.device)
+            return torch.from_numpy(a).pin_memory().to(self.device,
+                                                       non_blocking=True)
 
         times = dev(data["times"])
         if times.dim() > 2:
@@ -144,23 +175,26 @@ class VideoSRModel:
         self._batch = {"lqs": dev(data["LQs"]), "gt": dev(data["GT"]),
                        "times": times}
 
-    def optimize_parameters(self, step: Optional[int] = None,
-                            mark=None) -> dict:
-        """One train step on the fed batch at the model's own update count
-        (``step`` is accepted for the reference's signature and not read).
-        ``mark``: see ``make_train_step``."""
+    def run_step(self, mark=None) -> dict:
+        """One train step on the fed batch at the model's own update count:
+        {'loss', 'grad_norm'} as 0-dim tensors on the device, no host sync
+        (a compiled step's are its program's outputs: read them before the
+        next step). ``mark``: see ``make_train_step`` (eager steps only)."""
         if self._step_fn is None:
             raise RuntimeError("call init_params first")
         metrics = self._step_fn(self._batch, self.step, mark)
         self.step += 1
-        if self.ema_params is not None:
-            d = self.ema_decay
-            with torch.no_grad():
-                ema = list(self.ema_params.values())
-                torch._foreach_mul_(ema, d)
-                torch._foreach_add_(ema, list(self.net.state_dict().values()),
-                                    alpha=1.0 - d)
-        self.log = {k: float(v) for k, v in metrics.items()}
+        return metrics
+
+    def optimize_parameters(self, step: Optional[int] = None,
+                            mark=None) -> dict:
+        """``run_step``, then its logs on the host by one blocking copy
+        (``step`` is accepted for the reference's signature and not
+        read)."""
+        metrics = self.run_step(mark)
+        names = list(metrics)
+        values = torch.stack([metrics[k] for k in names]).tolist()
+        self.log = dict(zip(names, values))
         return self.log
 
     def get_current_log(self) -> dict:
@@ -216,26 +250,25 @@ class VideoSRModel:
         if self.ckpt is None or self.optimizer is None:
             raise RuntimeError("resume needs path.models and init_params")
         ck = self.ckpt.restore(step)
+        # every load copies in place: a captured step writes these tensors
         self.net.load_state_dict(ck["params"], strict=True)
         self.optimizer.load_state_dict(ck["opt_state"])
         self.step = int(ck["step"])
-        if self.ema_decay > 0:
+        if self.ema is not None:
             path = os.path.join(self.ckpt.directory,
                                 f"ema_params_{self.step}.pth")
-            if os.path.exists(path):
-                self.ema_params = {k: v.to(self.device)
-                                   for k, v in load_params(path).items()}
-            else:
-                self.ema_params = self._params_copy()
+            self.ema.load(load_params(path) if os.path.exists(path)
+                          else self.net.state_dict())
         return self.step
 
     def load_pth(self, path: str) -> None:
-        """Warm start from a reference ``.pth`` (strict); re-seeds EMA."""
+        """Warm start from a reference ``.pth`` (strict, in place);
+        re-seeds EMA."""
         from stif_tpu_torch.convert import load_pth
 
         load_pth(self.net, path)
-        if self.ema_decay > 0:
-            self.ema_params = self._params_copy()
+        if self.ema is not None:
+            self.ema.load(self.net.state_dict())
 
 
 def from_torch_batch(batch: dict) -> dict:

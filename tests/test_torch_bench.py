@@ -177,6 +177,36 @@ def test_batched_modes(tiny, b1, mode):
             assert np.abs(a.astype(int) - b).max() <= LSB
 
 
+def test_chunked_mode_times_no_quantisation(tiny, monkeypatch):
+    """The chunked mode's clock holds the decodes and no quantisation: its
+    float frames are quantised after the clock stops, as ``bench.py``'s
+    chunked mode times none, and its uint8 frames are those of ``full``
+    within 1 LSB."""
+    import types
+
+    _, _, _, model, pairs = tiny
+    groups = pairs.reshape((2, 2) + pairs.shape[1:])
+    full = bench.bench_batched(model, groups, TIMES, "full", warmup=0)
+    events, quantize, clock = [], bench.quantize, bench.time.perf_counter
+
+    def counted_quantize(x):
+        events.append("quantize")
+        return quantize(x)
+
+    def counted_clock():
+        events.append("clock")
+        return clock()
+
+    monkeypatch.setattr(bench, "quantize", counted_quantize)
+    monkeypatch.setattr(bench, "time",
+                        types.SimpleNamespace(perf_counter=counted_clock))
+    got = bench.bench_batched(model, groups, TIMES, "1000", warmup=1)
+    assert events == ["clock", "clock"] + ["quantize"] * len(groups)
+    for a, b in zip(got["outs"], full["outs"]):
+        assert a.dtype == np.uint8
+        assert np.abs(a.astype(int) - b).max() <= LSB
+
+
 @pytest.mark.parametrize("B, hw, nt, skip", [
     (1, (16, 16), 2, "bicubic"), (2, (16, 24), 3, "none"),
     (1, (12, 20), 1, "lr")])

@@ -1105,3 +1105,108 @@ def test_compiled_chunked_on_a_card_that_is_not_current(small_model):
         assert np.abs(got - want).max() == 0
     assert torch.cuda.current_device() == 0
     assert comp.programs.captures == 4
+
+
+# ------------------------------------------------- compiled train step
+
+TRAIN_NET = dict(which_model_G="LIIF", nf=8, nframes=6, groups=2,
+                 front_RBs=1, back_RBs=1, rgb_skip="bicubic")
+
+
+def _train_model(cuda, tmp_path, compiled):
+    from stif_tpu_torch.train.video_sr_model import VideoSRModel
+
+    torch.backends.cudnn.allow_tf32 = False
+    opt = {"network_G": dict(TRAIN_NET),
+           "path": {"models": str(tmp_path / f"models_{compiled}")},
+           "train": dict(lr_G=1e-4, warmup_iter=-1, T_period=[100],
+                         restarts=[], restart_weights=[], grad_clip=1e6,
+                         ema_decay=0.999)}
+    m = VideoSRModel(opt, device=cuda, compiled=compiled)
+    b = _train_batch(32, 0)
+    m.init_params(b["LQs"], b["times"], seed=3)
+    return m
+
+
+def _train_batch(gt, seed):
+    rng = np.random.default_rng(seed)
+    return {"LQs": rng.random((2, 2, 8, 8, 3)).astype(np.float32),
+            "GT": rng.random((2, 2, gt, gt, 3)).astype(np.float32),
+            "times": np.asarray([[0.0, 0.5], [1.0, 0.25]], np.float32)}
+
+
+def test_compiled_train_step_on_the_card(cuda, tmp_path):
+    """The step captured once per bucket (x4: GT 32, x2: GT 16) and
+    replayed: three steps (x4, x2, x4) against three eager ones from the
+    same init, loss rtol 1e-4 and grad norm rtol 1e-3 (the DCN backward's
+    atomics rule out bitwise); the third step, a bucket's second visit,
+    captures nothing, and its ``feed_data`` and replay run under the sync
+    debug mode "error"; ``optimize_parameters`` makes one blocking call,
+    its logs' fetch."""
+    from stif_tpu_torch.ops import dcn_backward, dcn_forward
+
+    eager = _train_model(cuda, tmp_path, False)
+    comp = _train_model(cuda, tmp_path, None)
+    assert comp.programs is not None and eager.programs is None
+    for gt, seed in ((32, 0), (16, 1), (32, 2)):
+        batch = _train_batch(gt, seed)
+        eager.feed_data(batch)
+        before = dcn_forward.launches, dcn_backward.launches
+        want = eager.optimize_parameters()
+        per_step = (dcn_forward.launches - before[0],
+                    dcn_backward.launches - before[1])
+        if seed < 2:
+            comp.feed_data(batch)
+            got = comp.optimize_parameters()
+        else:
+            with _sync_error():
+                comp.feed_data(batch)
+                metrics = comp.run_step()
+            got = {k: v.item() for k, v in metrics.items()}
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
+        np.testing.assert_allclose(got["grad_norm"], want["grad_norm"],
+                                   rtol=1e-3)
+    assert comp.programs.captures == 2
+    assert sorted(st["replays"] for st in comp.programs.stats()) == [1, 2]
+    # a replay tallies the launches of the whole step, the backward's (run
+    # from autograd's thread) and the remat's recomputation too
+    assert per_step[0] > per_step[1] > 0
+    for st in comp.programs.stats():
+        assert st["launches"] == {"dcn_forward": per_step[0],
+                                  "dcn_backward": per_step[1]}
+    comp.feed_data(_train_batch(16, 3))
+    _, blocking = _blocking_calls(comp.optimize_parameters)
+    assert blocking == 1 and comp.programs.captures == 2
+
+
+def test_compiled_train_step_resume_on_the_card(cuda, tmp_path):
+    """``resume_training`` copies params, moments, count and EMA into the
+    tensors the step's graph writes: the state after it is the saved one
+    bitwise, and the next step replays the program (no capture) and gives
+    the loss the uninterrupted run gave after the save (rtol 1e-5)."""
+    m = _train_model(cuda, tmp_path, None)
+    for seed in range(2):
+        m.feed_data(_train_batch(32, seed))
+        m.optimize_parameters()
+    assert m.save() == 2
+    saved = ({k: v.clone() for k, v in m.net.state_dict().items()},
+             [v.clone() for v in m.optimizer.state()[1:]],
+             {k: v.clone() for k, v in m.ema_params.items()})
+    m.feed_data(_train_batch(32, 2))
+    loss3 = m.optimize_parameters()["loss"]
+    assert m.resume_training() == 2
+    params, opt_state, ema = saved
+    assert all(torch.equal(v, params[k])
+               for k, v in m.net.state_dict().items())
+    # the gradients (in ``state``) are the last step's, not checkpointed
+    n = len(m.optimizer.params)
+    live = m.optimizer.state()[1:]
+    assert all(torch.equal(a, b) for i, (a, b) in
+               enumerate(zip(live, opt_state)) if not n <= i < 2 * n)
+    assert float(m.optimizer.count) == 2.0
+    assert all(torch.equal(v, ema[k]) for k, v in m.ema_params.items())
+    m.feed_data(_train_batch(32, 2))
+    again = m.optimize_parameters()["loss"]
+    np.testing.assert_allclose(again, loss3, rtol=1e-5)
+    assert m.programs.captures == 1
+    assert m.programs.stats()[0]["replays"] == 4
