@@ -94,8 +94,8 @@ Run from the root of a checkout. In order:
       buckets a first step each (the compiled one's warm-up, capture and
       replay) and 4 rounds in turns, then per model ms per step by CUDA
       events (median and runs), samples/s, host wall, peak memory, the
-      forward / backward / optimizer split (from the eager steps: a replay
-      has no phases), the capture's warm-up and capture ms and pool bytes,
+      forward / backward / optimizer split (from the stage marks, eager
+      and replayed alike), the capture's warm-up and capture ms and pool bytes,
       one profiled step each (top kernels, idle share, host-blocking
       calls) and one compiled step's blocking calls by the sync debug mode
       (at most 1: the logs' fetch); the x3 and x6 buckets compiled alone;
@@ -161,9 +161,9 @@ Run from the root of a checkout. In order:
    module shapes over wall time per window over the fp32 peak, in (0,
    1]); then ``scripts/bench_torch.py`` once as a subprocess (exit 0, its
    line parses and is logged) and the profile of one streamed window
-   (``runtime/profile.py``; its line is logged), compiled and then eager,
-   each of which must hold exactly one host-blocking call: the fetch's
-   ``cudaEventSynchronize``;
+   (``runtime/profile.py``; its line is logged), compiled, which must hold
+   exactly one host-blocking call (the fetch's ``cudaEventSynchronize``)
+   and report the replay's ``encode`` and ``decode`` stage marks;
 11. the compiled window (``runtime/compiled.py``), trained weights, the
    96x160 pairs at 8 times: ``render_window``, the local ensemble, test
    mode, the self-ensemble (two buckets: the transpose swaps H and W),
@@ -1634,27 +1634,30 @@ def batches(opt: dict):
 
 def timed_step(model):
     """One ``optimize_parameters`` timed by CUDA events: (logs, ms). The
-    step ends once its logs are on the host. An eager model's ms also has
-    its phases (forward, backward, update: the optimizer and the EMA); a
-    replayed step has none, only 'step'."""
+    step ends once its logs are on the host."""
     import torch
 
-    ev = {k: torch.cuda.Event(enable_timing=True)
-          for k in ("start", "forward", "backward", "end")}
+    ev = {k: torch.cuda.Event(enable_timing=True) for k in ("start", "end")}
     ev["start"].record()
-    if model.programs is None:
-        logs = model.optimize_parameters(
-            mark=lambda name: ev[name].record() if name in ev else None)
-    else:
-        logs = model.optimize_parameters()
+    logs = model.optimize_parameters()
     ev["end"].record()
     ev["end"].synchronize()
-    ms = {"step": ev["start"].elapsed_time(ev["end"])}
-    if model.programs is None:
-        ms.update(forward=ev["start"].elapsed_time(ev["forward"]),
-                  backward=ev["forward"].elapsed_time(ev["backward"]),
-                  update=ev["backward"].elapsed_time(ev["end"]))
-    return logs, ms
+    return logs, {"step": ev["start"].elapsed_time(ev["end"])}
+
+
+def phases(model, before: dict) -> dict:
+    """The phases of the steps since ``before`` (``stage_ms`` read then):
+    forward, backward and update (the optimizer and the EMA) from the
+    stage marks, eager or replayed; none for a step that captured its
+    bucket."""
+    from stif_tpu_torch.utils.trace import stage_ms
+
+    d = {k: v - before.get(k, 0.0)
+         for k, v in stage_ms(model.programs, model.device).items()}
+    if d.get("train.forward", 0.0) <= 0:
+        return {}
+    return {"forward": d["train.forward"], "backward": d["train.backward"],
+            "update": d["train.update"] + d.get("train.ema", 0.0)}
 
 
 def mode_name(compiled: bool) -> str:
@@ -1674,6 +1677,7 @@ def train_speed(opt: dict, card: str) -> dict:
     import torch
     from stif_tpu_torch.data.natural import find_natural_textures
     from stif_tpu_torch.train.video_sr_model import VideoSRModel
+    from stif_tpu_torch.utils.trace import stage_ms
 
     n = len(find_natural_textures())
     log(f"  bundled photographs found: {n}" + (
@@ -1685,12 +1689,15 @@ def train_speed(opt: dict, card: str) -> dict:
     def step(c, batch):
         """feed_data and one timed step of model ``c``: (logs, ms, wall ms,
         peak GiB of the step)."""
+        # the stage tables are read off the card outside the wall clock
+        before = stage_ms(models[c].programs, models[c].device)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         models[c].feed_data(batch)
         logs, ms = timed_step(models[c])
         wall = 1e3 * (time.perf_counter() - t0)
+        ms.update(phases(models[c], before))
         steps[c] += 1
         if not (np.isfinite(logs["loss"]) and np.isfinite(logs["grad_norm"])):
             raise AssertionError(f"{mode_name(c)} step {models[c].step}: "
@@ -1740,11 +1747,10 @@ def train_speed(opt: dict, card: str) -> dict:
             walls[c] = float(np.median([r[2] for r in timed]))
             med = float(np.median(ms))
             part = {k: float(np.median([r[1][k] for r in timed]))
-                    for k in ("forward", "backward", "update") if not c}
+                    for k in ("forward", "backward", "update")}
             split = (f"forward {part['forward']:.1f}, backward "
                      f"{part['backward']:.1f}, optimizer + EMA "
-                     f"{part['update']:.1f} ms" if not c else
-                     "split: see the eager line (a replay has no phases)")
+                     f"{part['update']:.1f} ms (stage marks)")
             peak = max(r[3] for r in rows[c])
             extra = (f"; capture: warm-up {comp_stats['warmup_ms']:.1f} ms, "
                      f"capture {comp_stats['capture_ms']:.1f} ms, pool "
@@ -2428,28 +2434,30 @@ def bench_phase(card: str, device) -> Launches:
     log(f"  exit 0 in {time.perf_counter() - t0:.1f} s: {line}")
 
     log("[10] profile of one streamed b1 window (runtime/profile.py), "
-        "compiled, then eager")
-    # compiled: the unprofiled stream (2 warm-up and 5 windows, and the
-    # capture's eager warm-up) and the profiled stream (a warm-up window
-    # with its capture, and 3 windows); the stage split (3 encodes and 3
-    # decodes); eager: the same two streams with no capture
+        "compiled")
+    # the unprofiled stream (2 warm-up and 5 windows, and the capture's
+    # eager warm-up) and the profiled stream (a warm-up window with its
+    # capture, and 3 windows)
     stream = bench.WARMUP + bench.ITERS
-    n = (stream + 1) + (1 + 1 + 3) + 3 + stream + (1 + 3)
+    n = (stream + 1) + (1 + 1 + 3)
     prof = count.run("profile", 3 * n,
                      lambda: profile.run(device, bench.Knobs()),
                      dcn=(DCN_PER_PAIR * n, 0))
     log(f"  {json.dumps(prof)}")
-    if not prof["compiled"] or prof["eager"] is None:
-        raise AssertionError("the profile did not read a compiled and an "
-                             "eager window")
-    for what, rec in (("compiled", prof), ("eager", prof["eager"])):
-        blocking = rec["blocking"]
-        require(f"host-blocking calls in the profiled {what} b1 window "
-                f"({json.dumps(blocking['calls'])}, the host blocked "
-                f"{blocking['host_blocked_ms']} ms; device busy "
-                f"{rec['device_busy_ms']} ms, span {rec['device_span_ms']} "
-                f"ms, idle share {rec['idle_share']})",
-                blocking["per_window"], blocking["per_window"] == 1)
+    if not prof["compiled"]:
+        raise AssertionError("the profile did not read a compiled window")
+    blocking = prof["blocking"]
+    require(f"host-blocking calls in the profiled compiled b1 window "
+            f"({json.dumps(blocking['calls'])}, the host blocked "
+            f"{blocking['host_blocked_ms']} ms; device busy "
+            f"{prof['device_busy_ms']} ms, span {prof['device_span_ms']} "
+            f"ms, idle share {prof['idle_share']})",
+            blocking["per_window"], blocking["per_window"] == 1)
+    stages = prof["stages"]
+    require(f"stage marks of the replayed window, device ms per window "
+            f"({json.dumps(stages)}; device busy {prof['device_busy_ms']} "
+            f"ms)", stages.get("encode", 0) + stages.get("decode", 0),
+            stages.get("encode", 0) > 0 and stages.get("decode", 0) > 0)
     return count
 
 

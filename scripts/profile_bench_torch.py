@@ -9,14 +9,14 @@ Streams the bench's b1 workload (``stif_tpu_torch/runtime/bench.py``: LR
 ``BENCH_*`` knobs), then captures one streamed window with
 ``torch.profiler`` (a Chrome trace under ``runs/profile_torch/``) and
 prints ONE JSON line (``stif_tpu_torch/runtime/profile.py``): the window's
-device time by stage (the PCD alignment, the ConvLSTM and its PCDs, the
-residual trunks, ``decode``), the top device ops, the idle share of an
-unprofiled window, the longest idle gaps with what the host was doing in
-each, and the host-blocking calls per window. On the card the captured
-window replays the bucket's CUDA graph, whose replay runs no Python forward
-hook: the stage ranges come from a second, eager window (``eager`` in the
-line). ``--eager`` profiles the eager window alone. ``--out`` also writes
-the line to a file.
+device time by model stage from the stage marks (``stages``: the encoder's
+front, PCD alignment, ConvLSTM and trunk, the decoder's prep, stages A+B
+and C+D), the device time by the host span that launched it, the top
+device ops, the idle share of an unprofiled window, the longest idle gaps
+with what the host was doing in each, and the host-blocking calls per
+window. On the card the captured window replays the bucket's CUDA graph,
+marks included; ``--eager`` profiles an eager window. ``--out`` also
+writes the line to a file.
 
 Runs on CUDA unless ``--device cpu`` is given (the device fields are then
 None), and raises without a GPU.

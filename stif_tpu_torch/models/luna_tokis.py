@@ -22,6 +22,13 @@ package's: input (B, N, H, W, 3), features (B, 2N-1, H, W, nf), output
   chunk, for frames too large to decode whole
   (``stif_tpu_torch.runtime.chunked``).
 
+Stage marks (``utils/trace.py``, with grad disabled): ``encode`` with
+``encode.front`` (the convs before the alignment), ``encode.pcd`` (each
+pair's alignment and fusion), ``encode.convlstm``, ``encode.trunk``;
+``decode`` with ``decode.prep`` (the decoder's inputs, the bicubic skip
+source, the query grid), ``decode.ab`` (stages A and B) and ``decode.cd``
+(stages C and D), the latter two in the chunk passes too.
+
 Not ported: ``lstm_unroll`` and ``lstm_fuse_dirs`` (ways to run the same
 math on a TPU) and the mesh.
 """
@@ -42,6 +49,7 @@ from stif_tpu_torch.ops.grid_sample import grid_sample
 from stif_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from stif_tpu_torch.ops.resize import imresize_to, resize_bilinear
 from stif_tpu_torch.ops.warp import warp_grid
+from stif_tpu_torch.utils.trace import mark
 
 _EPS = 1e-6
 
@@ -75,28 +83,39 @@ def add_encoder(m: nn.Module, nf: int, groups: int, front_RBs: int,
 def encode(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """The encoder (``gen_feat``) over the submodules ``add_encoder`` gave
     ``m``: x (B, N, H, W, 3) -> features (B, 2N-1, H, W, nf)."""
-    B, N, H, W, C = x.shape
-    l1 = lrelu(m.conv_first(x.reshape(B * N, H, W, C)))
-    l1 = m.feature_extraction(l1)
-    l2 = lrelu(m.fea_L2_conv2(lrelu(m.fea_L2_conv1(l1))))
-    l3 = lrelu(m.fea_L3_conv2(lrelu(m.fea_L3_conv1(l2))))
-    l1 = l1.reshape(B, N, H, W, -1)
-    l2 = l2.reshape(B, N, H // 2, W // 2, -1)
-    l3 = l3.reshape(B, N, H // 4, W // 4, -1)
+    with mark("encode", x.device):
+        B, N, H, W, C = x.shape
+        l1, l2, l3 = pyramid(m, x)
+        seq = []
+        for idx in range(N - 1):
+            fea1 = [l1[:, idx], l2[:, idx], l3[:, idx]]
+            fea2 = [l1[:, idx + 1], l2[:, idx + 1], l3[:, idx + 1]]
+            with mark("encode.pcd", x.device):
+                fused = m.fusion(m.pcd_align(fea1, fea2))
+            if idx == 0:
+                seq.append(fea1[0])
+            seq.append(fused)
+            seq.append(fea2[0])
+        with mark("encode.convlstm", x.device):
+            feats = m.ConvBLSTM(torch.stack(seq, 1))  # (B, 2N-1, H, W, nf)
+        B2, T, Hf, Wf, Cf = feats.shape
+        with mark("encode.trunk", x.device):
+            out = m.recon_trunk(feats.reshape(B2 * T, Hf, Wf, Cf))
+        return out.reshape(B2, T, Hf, Wf, Cf)
 
-    seq = []
-    for idx in range(N - 1):
-        fea1 = [l1[:, idx], l2[:, idx], l3[:, idx]]
-        fea2 = [l1[:, idx + 1], l2[:, idx + 1], l3[:, idx + 1]]
-        fused = m.fusion(m.pcd_align(fea1, fea2))
-        if idx == 0:
-            seq.append(fea1[0])
-        seq.append(fused)
-        seq.append(fea2[0])
-    feats = m.ConvBLSTM(torch.stack(seq, 1))  # (B, 2N-1, H, W, nf)
-    B2, T, Hf, Wf, Cf = feats.shape
-    out = m.recon_trunk(feats.reshape(B2 * T, Hf, Wf, Cf))
-    return out.reshape(B2, T, Hf, Wf, Cf)
+
+def pyramid(m: nn.Module, x: torch.Tensor):
+    """The encoder's front (stage ``encode.front``): ``conv_first``, the
+    front residual blocks and the strided L2 / L3 convs of x (B, N, H, W,
+    3): the three levels (B, N, H / 2**k, W / 2**k, nf)."""
+    B, N, H, W, C = x.shape
+    with mark("encode.front", x.device):
+        l1 = lrelu(m.conv_first(x.reshape(B * N, H, W, C)))
+        l1 = m.feature_extraction(l1)
+        l2 = lrelu(m.fea_L2_conv2(lrelu(m.fea_L2_conv1(l1))))
+        l3 = lrelu(m.fea_L3_conv2(lrelu(m.fea_L3_conv1(l2))))
+    return (l1.reshape(B, N, H, W, -1), l2.reshape(B, N, H // 2, W // 2, -1),
+            l3.reshape(B, N, H // 4, W // 4, -1))
 
 
 @register_model("LunaTokis")
@@ -225,106 +244,109 @@ class LunaTokis(nn.Module):
         The SIREN nets get their fields as views (broadcasts over the time
         axis, column slices of a fused gather), never concatenated here.
         """
-        B, H, W = feat.shape[:3]
-        dev = feat.device
-        coord_xy = coord_q.flip(-1)  # grid_sample wants (x, y)
-        feat_coord = make_coord_cached((H, W), flatten=False, device=dev)
-        feat_coord = feat_coord[None].expand(B, H, W, 2)
+        with mark("decode.ab", feat.device):
+            B, H, W = feat.shape[:3]
+            dev = feat.device
+            coord_xy = coord_q.flip(-1)  # grid_sample wants (x, y)
+            feat_coord = make_coord_cached((H, W), flatten=False, device=dev)
+            feat_coord = feat_coord[None].expand(B, H, W, 2)
 
-        # stage A gathers: every LR field sampled at the same grid, at once
-        nfc, nic = feat.shape[-1], inp_cat.shape[-1]
-        q_a = grid_sample(torch.cat([feat, inp_cat, feat_coord], -1),
-                          coord_xy, mode="nearest")
-        q_coord = q_a[..., nfc + nic:]
-        rel = (coord_ref - q_coord) * vector(H, W, dtype=coord_ref.dtype,
-                                             device=dev)
-        area = (rel[..., 0] * rel[..., 1]).abs() + 1e-9
-        base_a = torch.cat([q_a[..., :nfc + nic], rel], -1)  # (B, Q, 3nf+8)
+            # stage A gathers: every LR field sampled at the same grid, at once
+            nfc, nic = feat.shape[-1], inp_cat.shape[-1]
+            q_a = grid_sample(torch.cat([feat, inp_cat, feat_coord], -1),
+                              coord_xy, mode="nearest")
+            q_coord = q_a[..., nfc + nic:]
+            rel = (coord_ref - q_coord) * vector(H, W, dtype=coord_ref.dtype,
+                                                 device=dev)
+            area = (rel[..., 0] * rel[..., 1]).abs() + 1e-9
+            # (B, Q, 3nf+8)
+            base_a = torch.cat([q_a[..., :nfc + nic], rel], -1)
 
-        # stage B gathers of the time-independent fields, one fused gather
-        # when hr_inp is at LR resolution (the non-test path)
-        same_res = hr_inp.shape[1:3] == feat.shape[1:3]
-        if same_res:
-            q_b = self._gs_b(torch.cat([feat, hr_inp], -1), coord_xy)
-            q_feat0_b, q_inp_b = q_b[..., :nfc], q_b[..., nfc:]
-        else:
-            q_inp_b = self._gs_b(hr_inp, coord_xy)
-            q_feat0_b = self._gs_b(feat, coord_xy)
-
-        t_nb = _times_nb(times, B, dev)
-        nt = t_nb.shape[0]
-        Q = HH * WW
-
-        def tile_t(v):  # (B, ...) -> (nt, B, ...), a broadcast view
-            return v.expand(nt, *v.shape)
-
-        def tile_b(v):  # (B, h, w, C) -> (nt*B, h, w, C), a gather source
-            return tile_t(v).reshape(nt * B, *v.shape[1:])
-
-        pe = t_nb[:, :, None, None].expand(nt, B, Q, 1).contiguous()
-
-        # stage A: HR feature field (nt, B, Q, 64)
-        hrfeat_q = self.feat_imnet([tile_t(base_a), pe])
-        hrfeat = hrfeat_q.reshape(nt * B, HH, WW, -1)
-        # stage B: flow
-        if identity_b:
-            q_feat_b = hrfeat_q
-        else:
-            q_feat_b = grid_sample(
-                hrfeat, tile_t(coord_xy).reshape(nt * B, Q, 2),
-                mode="nearest").reshape(nt, B, Q, -1)
-        flow_q = self.flow_imnet([q_feat_b, tile_t(q_feat0_b),
-                                  tile_t(q_inp_b), pe])
-        flow = flow_q.reshape(nt * B, HH, WW, 4)
-        # stage C: warp grids, then the gathers at both
-        g1 = warp_grid(flow[..., :2]).clamp(-1 + _EPS, 1 - _EPS)
-        g2 = warp_grid(flow[..., 2:]).clamp(-1 + _EPS, 1 - _EPS)
-        g1 = g1.reshape(nt * B, Q, 2)
-        g2 = g2.reshape(nt * B, Q, 2)
-        pe = pe.reshape(nt * B, Q, 1)
-        # the wide LR gathers come first, while the HR gathers' results do
-        # not exist yet: a gather holds its result twice for a moment
-        if same_res and not self.stagec_nearest:
-            # equal-resolution LR sources fuse into one gather per grid
-            lr_cat = torch.cat([feat, hr_inp], -1)
-            if self.stagec_dedup:
-                # the source does not depend on time: fold nt into the query
-                # axis and gather once from the (B, ...) map
-                def fold_q(g):   # (nt*B, Q, 2) -> (B, nt*Q, 2)
-                    return (g.reshape(nt, B, Q, 2).transpose(0, 1)
-                            .reshape(B, nt * Q, 2))
-
-                def unfold_q(c):  # (B, nt*Q, C) -> (nt*B, Q, C)
-                    return (c.reshape(B, nt, Q, -1).transpose(0, 1)
-                            .reshape(nt * B, Q, -1))
-
-                c1 = unfold_q(self._gs_b(lr_cat, fold_q(g1)))
-                c2 = unfold_q(self._gs_b(lr_cat, fold_q(g2)))
-            else:
-                lr_c = tile_b(lr_cat)
-                c1 = self._gs_b(lr_c, g1)
-                c2 = self._gs_b(lr_c, g2)
-            q_feat3, q_img1 = c1[..., :nfc], c1[..., nfc:]
-            q_feat4, q_img2 = c2[..., :nfc], c2[..., nfc:]
-        else:
-            feat_tl, hr_inp_tl = tile_b(feat), tile_b(hr_inp)
-            q_img1 = self._gs_b(hr_inp_tl, g1)
-            q_img2 = self._gs_b(hr_inp_tl, g2)
+            # stage B gathers of the time-independent fields, one fused gather
+            # when hr_inp is at LR resolution (the non-test path)
+            same_res = hr_inp.shape[1:3] == feat.shape[1:3]
             if same_res:
-                # stagec_nearest: the wide feature component by a nearest
-                # gather (no dedup fold, no source dtype); the 6-channel
-                # inputs stay bilinear
-                q_feat3 = grid_sample(feat_tl, g1, mode="nearest")
-                q_feat4 = grid_sample(feat_tl, g2, mode="nearest")
+                q_b = self._gs_b(torch.cat([feat, hr_inp], -1), coord_xy)
+                q_feat0_b, q_inp_b = q_b[..., :nfc], q_b[..., nfc:]
             else:
-                # hr_inp at HR resolution (test mode): the stage-C knobs
-                # do not apply
-                q_feat3 = self._gs_b(feat_tl, g1)
-                q_feat4 = self._gs_b(feat_tl, g2)
-        q_feat1 = self._gs_b(hrfeat, g1)
-        q_feat2 = self._gs_b(hrfeat, g2)
-        rgb = self._rgb([q_feat1, q_feat2, q_feat3, q_feat4], pe, q_img1,
-                        q_img2, skip_hr, g1, g2, tile_b)
+                q_inp_b = self._gs_b(hr_inp, coord_xy)
+                q_feat0_b = self._gs_b(feat, coord_xy)
+
+            t_nb = _times_nb(times, B, dev)
+            nt = t_nb.shape[0]
+            Q = HH * WW
+
+            def tile_t(v):  # (B, ...) -> (nt, B, ...), a broadcast view
+                return v.expand(nt, *v.shape)
+
+            def tile_b(v):  # (B, h, w, C) -> (nt*B, h, w, C), a gather source
+                return tile_t(v).reshape(nt * B, *v.shape[1:])
+
+            pe = t_nb[:, :, None, None].expand(nt, B, Q, 1).contiguous()
+
+            # stage A: HR feature field (nt, B, Q, 64)
+            hrfeat_q = self.feat_imnet([tile_t(base_a), pe])
+            hrfeat = hrfeat_q.reshape(nt * B, HH, WW, -1)
+            # stage B: flow
+            if identity_b:
+                q_feat_b = hrfeat_q
+            else:
+                q_feat_b = grid_sample(
+                    hrfeat, tile_t(coord_xy).reshape(nt * B, Q, 2),
+                    mode="nearest").reshape(nt, B, Q, -1)
+            flow_q = self.flow_imnet([q_feat_b, tile_t(q_feat0_b),
+                                      tile_t(q_inp_b), pe])
+            flow = flow_q.reshape(nt * B, HH, WW, 4)
+        with mark("decode.cd", feat.device):
+            # stage C: warp grids, then the gathers at both
+            g1 = warp_grid(flow[..., :2]).clamp(-1 + _EPS, 1 - _EPS)
+            g2 = warp_grid(flow[..., 2:]).clamp(-1 + _EPS, 1 - _EPS)
+            g1 = g1.reshape(nt * B, Q, 2)
+            g2 = g2.reshape(nt * B, Q, 2)
+            pe = pe.reshape(nt * B, Q, 1)
+            # the wide LR gathers come first, while the HR gathers' results do
+            # not exist yet: a gather holds its result twice for a moment
+            if same_res and not self.stagec_nearest:
+                # equal-resolution LR sources fuse into one gather per grid
+                lr_cat = torch.cat([feat, hr_inp], -1)
+                if self.stagec_dedup:
+                    # the source does not depend on time: fold nt into the
+                    # query axis and gather once from the (B, ...) map
+                    def fold_q(g):   # (nt*B, Q, 2) -> (B, nt*Q, 2)
+                        return (g.reshape(nt, B, Q, 2).transpose(0, 1)
+                                .reshape(B, nt * Q, 2))
+
+                    def unfold_q(c):  # (B, nt*Q, C) -> (nt*B, Q, C)
+                        return (c.reshape(B, nt, Q, -1).transpose(0, 1)
+                                .reshape(nt * B, Q, -1))
+
+                    c1 = unfold_q(self._gs_b(lr_cat, fold_q(g1)))
+                    c2 = unfold_q(self._gs_b(lr_cat, fold_q(g2)))
+                else:
+                    lr_c = tile_b(lr_cat)
+                    c1 = self._gs_b(lr_c, g1)
+                    c2 = self._gs_b(lr_c, g2)
+                q_feat3, q_img1 = c1[..., :nfc], c1[..., nfc:]
+                q_feat4, q_img2 = c2[..., :nfc], c2[..., nfc:]
+            else:
+                feat_tl, hr_inp_tl = tile_b(feat), tile_b(hr_inp)
+                q_img1 = self._gs_b(hr_inp_tl, g1)
+                q_img2 = self._gs_b(hr_inp_tl, g2)
+                if same_res:
+                    # stagec_nearest: the wide feature component by a nearest
+                    # gather (no dedup fold, no source dtype); the 6-channel
+                    # inputs stay bilinear
+                    q_feat3 = grid_sample(feat_tl, g1, mode="nearest")
+                    q_feat4 = grid_sample(feat_tl, g2, mode="nearest")
+                else:
+                    # hr_inp at HR resolution (test mode): the stage-C knobs
+                    # do not apply
+                    q_feat3 = self._gs_b(feat_tl, g1)
+                    q_feat4 = self._gs_b(feat_tl, g2)
+            q_feat1 = self._gs_b(hrfeat, g1)
+            q_feat2 = self._gs_b(hrfeat, g2)
+            rgb = self._rgb([q_feat1, q_feat2, q_feat3, q_feat4], pe, q_img1,
+                            q_img2, skip_hr, g1, g2, tile_b)
         return rgb.reshape(nt, B, HH, WW, 3), area
 
     def decode(self, feat_t: torch.Tensor, inp: torch.Tensor, times,
@@ -340,47 +362,51 @@ class LunaTokis(nn.Module):
         the diagonally opposite pass. ``coords`` is an explicit (Q, 2) (y, x)
         query window of shape ``out_size`` (see ``decode_zoom``).
         """
-        feat, inp_cat, hr_inp = self._decode_prep(feat_t, inp, hr_inp_upsample)
-        B, H, W = feat.shape[:3]
-        if coords is None:
-            HH, WW = out_size if out_size is not None else (4 * H, 4 * W)
-            coord = make_coord_cached((HH, WW), device=feat.device)
-            coord = coord.clamp(-1 + _EPS, 1 - _EPS)
-        else:
-            HH, WW = out_size
-            coord = torch.as_tensor(coords, dtype=torch.float32,
-                                    device=feat.device)
-        coord = coord[None].expand(B, HH * WW, 2)
-        skip_hr = self._skip_source(inp_cat, (HH, WW), coords is None)
+        with mark("decode", feat_t.device):
+            with mark("decode.prep", feat_t.device):
+                feat, inp_cat, hr_inp = self._decode_prep(feat_t, inp,
+                                                          hr_inp_upsample)
+                B, H, W = feat.shape[:3]
+                if coords is None:
+                    HH, WW = (out_size if out_size is not None
+                              else (4 * H, 4 * W))
+                    coord = make_coord_cached((HH, WW), device=feat.device)
+                    coord = coord.clamp(-1 + _EPS, 1 - _EPS)
+                else:
+                    HH, WW = out_size
+                    coord = torch.as_tensor(coords, dtype=torch.float32,
+                                            device=feat.device)
+                coord = coord[None].expand(B, HH * WW, 2)
+                skip_hr = self._skip_source(inp_cat, (HH, WW), coords is None)
 
-        if not local_ensemble:
-            # with grad on, the pass is recomputed in the backward instead
-            # of storing its gathered fields and SIREN activations (the JAX
-            # package's ``nn.remat(pass_fn)``); the same maths either way
-            rgb, _ = remat(self._decode_pass, feat, inp_cat, hr_inp, coord,
-                           coord, times, HH, WW, identity_b=coords is None,
-                           skip_hr=skip_hr)
-            return rgb
+            if not local_ensemble:
+                # with grad on, the pass is recomputed in the backward instead
+                # of storing its gathered fields and SIREN activations (the JAX
+                # package's ``nn.remat(pass_fn)``); the same maths either way
+                rgb, _ = remat(self._decode_pass, feat, inp_cat, hr_inp, coord,
+                               coord, times, HH, WW, identity_b=coords is None,
+                               skip_hr=skip_hr)
+                return rgb
 
-        rx = 2.0 / H / 2.0
-        ry = 2.0 / W / 2.0
-        preds, areas = [], []
-        for vx in (-1, 1):
-            for vy in (-1, 1):
-                shift = vector(vx * rx + _EPS, vy * ry + _EPS,
-                               dtype=coord.dtype, device=coord.device)
-                coord_s = (coord + shift).clamp(-1 + _EPS, 1 - _EPS)
-                rgb, area = self._decode_pass(feat, inp_cat, hr_inp, coord_s,
-                                              coord, times, HH, WW,
-                                              skip_hr=skip_hr)
-                preds.append(rgb)
-                areas.append(area)
-        tot = areas[0] + areas[1] + areas[2] + areas[3]
-        out = 0.0
-        # each pass is weighted by the area of the diagonally opposite one
-        for p, a in zip(preds, areas[::-1]):
-            out = out + p * (a / tot).reshape(1, B, HH, WW, 1)
-        return out
+            rx = 2.0 / H / 2.0
+            ry = 2.0 / W / 2.0
+            preds, areas = [], []
+            for vx in (-1, 1):
+                for vy in (-1, 1):
+                    shift = vector(vx * rx + _EPS, vy * ry + _EPS,
+                                   dtype=coord.dtype, device=coord.device)
+                    coord_s = (coord + shift).clamp(-1 + _EPS, 1 - _EPS)
+                    rgb, area = self._decode_pass(
+                        feat, inp_cat, hr_inp, coord_s, coord, times, HH, WW,
+                        skip_hr=skip_hr)
+                    preds.append(rgb)
+                    areas.append(area)
+            tot = areas[0] + areas[1] + areas[2] + areas[3]
+            out = 0.0
+            # each pass is weighted by the area of the diagonally opposite one
+            for p, a in zip(preds, areas[::-1]):
+                out = out + p * (a / tot).reshape(1, B, HH, WW, 1)
+            return out
 
     # ------------------------------------------------- chunked decode stages
     #
@@ -395,33 +421,34 @@ class LunaTokis(nn.Module):
 
         feat (B, H, W, 3nf), inp_cat (B, H, W, N*3), hr_inp, coord_chunk
         (B, Cq, 2) (y, x) -> (hrfeat (nt*B, Cq, 64), flow (nt*B, Cq, 4))."""
-        B, H, W = feat.shape[:3]
-        dev = feat.device
-        cxy = coord_chunk.flip(-1)
-        feat_coord = make_coord_cached((H, W), flatten=False, device=dev)
-        feat_coord = feat_coord[None].expand(B, H, W, 2)
-        q_feat_a = grid_sample(feat, cxy, mode="nearest")
-        q_inp_a = grid_sample(inp_cat, cxy, mode="nearest")
-        q_coord = grid_sample(feat_coord, cxy, mode="nearest")
-        rel = (coord_chunk - q_coord) * vector(H, W, dtype=coord_chunk.dtype,
-                                               device=dev)
-        base_a = torch.cat([q_feat_a, q_inp_a, rel], -1)
-        # these two gathers take gather_dtype only, as in the JAX package
-        q_inp_b = grid_sample(hr_inp, cxy, source_dtype=self.gather_dtype)
-        q_feat0_b = grid_sample(feat, cxy, source_dtype=self.gather_dtype)
+        with mark("decode.ab", feat.device):
+            B, H, W = feat.shape[:3]
+            dev = feat.device
+            cxy = coord_chunk.flip(-1)
+            feat_coord = make_coord_cached((H, W), flatten=False, device=dev)
+            feat_coord = feat_coord[None].expand(B, H, W, 2)
+            q_feat_a = grid_sample(feat, cxy, mode="nearest")
+            q_inp_a = grid_sample(inp_cat, cxy, mode="nearest")
+            q_coord = grid_sample(feat_coord, cxy, mode="nearest")
+            rel = (coord_chunk - q_coord) * vector(
+                H, W, dtype=coord_chunk.dtype, device=dev)
+            base_a = torch.cat([q_feat_a, q_inp_a, rel], -1)
+            # these two gathers take gather_dtype only, as in the JAX package
+            q_inp_b = grid_sample(hr_inp, cxy, source_dtype=self.gather_dtype)
+            q_feat0_b = grid_sample(feat, cxy, source_dtype=self.gather_dtype)
 
-        t_nb = _times_nb(times, B, dev)
-        nt = t_nb.shape[0]
-        Cq = coord_chunk.shape[1]
+            t_nb = _times_nb(times, B, dev)
+            nt = t_nb.shape[0]
+            Cq = coord_chunk.shape[1]
 
-        def tile_t(v):
-            return v.expand(nt, *v.shape)
+            def tile_t(v):
+                return v.expand(nt, *v.shape)
 
-        pe = t_nb[:, :, None, None].expand(nt, B, Cq, 1).contiguous()
-        hrfeat = self.feat_imnet([tile_t(base_a), pe])
-        flow = self.flow_imnet([hrfeat, tile_t(q_feat0_b), tile_t(q_inp_b),
-                                pe])
-        return hrfeat.reshape(nt * B, Cq, -1), flow.reshape(nt * B, Cq, -1)
+            pe = t_nb[:, :, None, None].expand(nt, B, Cq, 1).contiguous()
+            hrfeat = self.feat_imnet([tile_t(base_a), pe])
+            flow = self.flow_imnet([hrfeat, tile_t(q_feat0_b), tile_t(q_inp_b),
+                                    pe])
+            return hrfeat.reshape(nt * B, Cq, -1), flow.reshape(nt * B, Cq, -1)
 
     def decode_chunk_cd(self, hrfeat_full, feat, hr_inp, flow_chunk,
                         base_grid_chunk, times, out_size, skip_hr=None):
@@ -431,38 +458,39 @@ class LunaTokis(nn.Module):
         base_grid_chunk (Cq, 2): the ``align_corners=True`` lattice values
         (x, y) of this chunk's pixels on the full (HH, WW) canvas; skip_hr:
         optional (B, HH, WW, 6) bicubic skip source. Returns (nt*B, Cq, 3)."""
-        HH, WW = out_size
-        B = feat.shape[0]
-        ntB, Cq = flow_chunk.shape[:2]
-        nt = ntB // B
+        with mark("decode.cd", feat.device):
+            HH, WW = out_size
+            B = feat.shape[0]
+            ntB, Cq = flow_chunk.shape[:2]
+            nt = ntB // B
 
-        def tile_b(v):  # (B, h, w, C) -> (nt*B, h, w, C)
-            return v.expand(nt, *v.shape).reshape(ntB, *v.shape[1:])
+            def tile_b(v):  # (B, h, w, C) -> (nt*B, h, w, C)
+                return v.expand(nt, *v.shape).reshape(ntB, *v.shape[1:])
 
-        norm = vector((WW - 1.0) / 2.0, (HH - 1.0) / 2.0,
-                      dtype=flow_chunk.dtype, device=flow_chunk.device)
-        g1 = base_grid_chunk[None] + flow_chunk[..., 0:2] / norm
-        g2 = base_grid_chunk[None] + flow_chunk[..., 2:4] / norm
-        g1 = g1.clamp(-1 + _EPS, 1 - _EPS)
-        g2 = g2.clamp(-1 + _EPS, 1 - _EPS)
-        feat_tl, hr_inp_tl = tile_b(feat), tile_b(hr_inp)
-        q_img1 = self._gs_b(hr_inp_tl, g1)
-        q_img2 = self._gs_b(hr_inp_tl, g2)
-        if self.stagec_nearest and hr_inp.shape[1:3] == feat.shape[1:3]:
-            # the same approximation, under the same condition, as the
-            # full-grid pass
-            q_feat3 = grid_sample(feat_tl, g1, mode="nearest")
-            q_feat4 = grid_sample(feat_tl, g2, mode="nearest")
-        else:
-            q_feat3 = self._gs_b(feat_tl, g1)
-            q_feat4 = self._gs_b(feat_tl, g2)
-        q_feat1 = self._gs_b(hrfeat_full, g1)
-        q_feat2 = self._gs_b(hrfeat_full, g2)
-        t_nb = _times_nb(times, B, feat.device)
-        pe = (t_nb[:, :, None, None].expand(nt, B, Cq, 1).contiguous()
-              .reshape(ntB, Cq, 1))
-        return self._rgb([q_feat1, q_feat2, q_feat3, q_feat4], pe, q_img1,
-                         q_img2, skip_hr, g1, g2, tile_b)
+            norm = vector((WW - 1.0) / 2.0, (HH - 1.0) / 2.0,
+                          dtype=flow_chunk.dtype, device=flow_chunk.device)
+            g1 = base_grid_chunk[None] + flow_chunk[..., 0:2] / norm
+            g2 = base_grid_chunk[None] + flow_chunk[..., 2:4] / norm
+            g1 = g1.clamp(-1 + _EPS, 1 - _EPS)
+            g2 = g2.clamp(-1 + _EPS, 1 - _EPS)
+            feat_tl, hr_inp_tl = tile_b(feat), tile_b(hr_inp)
+            q_img1 = self._gs_b(hr_inp_tl, g1)
+            q_img2 = self._gs_b(hr_inp_tl, g2)
+            if self.stagec_nearest and hr_inp.shape[1:3] == feat.shape[1:3]:
+                # the same approximation, under the same condition, as the
+                # full-grid pass
+                q_feat3 = grid_sample(feat_tl, g1, mode="nearest")
+                q_feat4 = grid_sample(feat_tl, g2, mode="nearest")
+            else:
+                q_feat3 = self._gs_b(feat_tl, g1)
+                q_feat4 = self._gs_b(feat_tl, g2)
+            q_feat1 = self._gs_b(hrfeat_full, g1)
+            q_feat2 = self._gs_b(hrfeat_full, g2)
+            t_nb = _times_nb(times, B, feat.device)
+            pe = (t_nb[:, :, None, None].expand(nt, B, Cq, 1).contiguous()
+                  .reshape(ntB, Cq, 1))
+            return self._rgb([q_feat1, q_feat2, q_feat3, q_feat4], pe, q_img1,
+                             q_img2, skip_hr, g1, g2, tile_b)
 
     def decode_zoom(self, feat_t, inp, times, out_size, window, center,
                     hr_inp_upsample: bool = False) -> torch.Tensor:

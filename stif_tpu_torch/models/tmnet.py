@@ -9,6 +9,12 @@ reference's ``nn.Sequential`` containers (``t_process``, ``f_process``,
 ``layersAtBOffset``, ``layersCtBOffset``, ``layersFusion``) are
 ``nn.Sequential`` here too, so their convs are keyed ``t_process.0``,
 ``t_process.2``, ...
+
+Stage marks (``utils/trace.py``, with grad disabled): ``encode``, up to
+the end of the recon trunk, with ``encode.front``, ``encode.pcd`` (each of
+the time-modulated alignments and its fusion), ``encode.convlstm`` and
+``encode.trunk``; ``head``, the trunk's residual and the pixel-shuffle
+upsampling.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from stif_tpu_torch.models.luna_tokis import pyramid
 from stif_tpu_torch.models.registry import register_model
 from stif_tpu_torch.nn.blocks import Conv, ResidualTrunk, lrelu
 from stif_tpu_torch.nn.convlstm import BiDeformableConvLSTM
@@ -23,6 +30,7 @@ from stif_tpu_torch.nn.dcn import DCNSep
 from stif_tpu_torch.nn.pcd import PCDAlign
 from stif_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from stif_tpu_torch.ops.resize import resize_bilinear
+from stif_tpu_torch.utils.trace import mark
 
 
 def _convs(*convs: Conv, last_act: bool) -> nn.Sequential:
@@ -148,50 +156,50 @@ class TMNet(nn.Module):
             t_n = t / 0.5 - 1.0
             t_back_n = (1.0 - t) / 0.5 - 1.0
 
-        l1 = lrelu(self.conv_first(x.reshape(B * N, H, W, C)))
-        l1 = self.feature_extraction(l1)
-        l2 = lrelu(self.fea_L2_conv2(lrelu(self.fea_L2_conv1(l1))))
-        l3 = lrelu(self.fea_L3_conv2(lrelu(self.fea_L3_conv1(l2))))
-        l1 = l1.reshape(B, N, H, W, -1)
-        l2 = l2.reshape(B, N, H // 2, W // 2, -1)
-        l3 = l3.reshape(B, N, H // 4, W // 4, -1)
+        dev = x.device
+        with mark("encode", dev):
+            l1, l2, l3 = pyramid(self, x)
+            seq = []
+            for idx in range(N - 1):
+                fea1 = [l1[:, idx], l2[:, idx], l3[:, idx]]
+                fea2 = [l1[:, idx + 1], l2[:, idx + 1], l3[:, idx + 1]]
+                if idx == 0:
+                    seq.append(fea1[0])
+                if t is None:
+                    with mark("encode.pcd", dev):
+                        seq.append(self.fusion(self.pcd_align(fea1, fea2)))
+                else:
+                    for i in range(t.shape[1]):
+                        with mark("encode.pcd", dev):
+                            aligned = self.pcd_align(
+                                fea1, fea2, t_n[:, i].reshape(B, 1, 1, 1),
+                                t_back_n[:, i].reshape(B, 1, 1, 1))
+                            seq.append(self.fusion(aligned))
+                seq.append(fea2[0])
+            dnc_feats = torch.stack(seq, 1)  # (B, T, H, W, nf)
+            T = dnc_feats.shape[1]
 
-        seq = []
-        for idx in range(N - 1):
-            fea1 = [l1[:, idx], l2[:, idx], l3[:, idx]]
-            fea2 = [l1[:, idx + 1], l2[:, idx + 1], l3[:, idx + 1]]
-            if idx == 0:
-                seq.append(fea1[0])
-            if t is None:
-                seq.append(self.fusion(self.pcd_align(fea1, fea2)))
-            else:
-                for i in range(t.shape[1]):
-                    aligned = self.pcd_align(
-                        fea1, fea2, t_n[:, i].reshape(B, 1, 1, 1),
-                        t_back_n[:, i].reshape(B, 1, 1, 1))
-                    seq.append(self.fusion(aligned))
-            seq.append(fea2[0])
-        dnc_feats = torch.stack(seq, 1)  # (B, T, H, W, nf)
-        T = dnc_feats.shape[1]
+            # non-linear comparison: align frames i-1 and i+1 (clamped at
+            # both ends) to frame i, fuse, add as a residual
+            refined = []
+            for i in range(T):
+                fea0 = dnc_feats[:, max(i - 1, 0)]
+                fea1 = dnc_feats[:, i]
+                fea2 = dnc_feats[:, min(i + 1, T - 1)]
+                fea0_al = lrelu(self.layersAtB(
+                    fea0, self.layersAtBOffset(torch.cat([fea0, fea1], -1))))
+                fea2_al = lrelu(self.layersCtB(
+                    fea2, self.layersCtBOffset(torch.cat([fea2, fea1], -1))))
+                refined.append(self.layersFusion(
+                    torch.cat([fea0_al, fea1, fea2_al], -1)))
+            with mark("encode.convlstm", dev):
+                feats = self.ConvBLSTM(dnc_feats + torch.stack(refined, 1))
+            with mark("encode.trunk", dev):
+                out = self.recon_trunk(feats.reshape(B * T, H, W, -1))
 
-        # non-linear comparison: align frames i-1 and i+1 (clamped at both
-        # ends) to frame i, fuse, add as a residual
-        refined = []
-        for i in range(T):
-            fea0 = dnc_feats[:, max(i - 1, 0)]
-            fea1 = dnc_feats[:, i]
-            fea2 = dnc_feats[:, min(i + 1, T - 1)]
-            fea0_al = lrelu(self.layersAtB(
-                fea0, self.layersAtBOffset(torch.cat([fea0, fea1], -1))))
-            fea2_al = lrelu(self.layersCtB(
-                fea2, self.layersCtBOffset(torch.cat([fea2, fea1], -1))))
-            refined.append(self.layersFusion(
-                torch.cat([fea0_al, fea1, fea2_al], -1)))
-        feats = self.ConvBLSTM(dnc_feats + torch.stack(refined, 1))
-
-        out = self.recon_trunk(feats.reshape(B * T, H, W, -1))
-        out = out + dnc_feats.reshape(B * T, H, W, -1)
-        out = lrelu(pixel_shuffle(self.upconv1(out), 2))
-        out = lrelu(pixel_shuffle(self.upconv2(out), 2))
-        out = self.conv_last(lrelu(self.HRconv(out)))
+        with mark("head", dev):
+            out = out + dnc_feats.reshape(B * T, H, W, -1)
+            out = lrelu(pixel_shuffle(self.upconv1(out), 2))
+            out = lrelu(pixel_shuffle(self.upconv2(out), 2))
+            out = self.conv_last(lrelu(self.HRconv(out)))
         return out.reshape(B, T, 4 * H, 4 * W, 3)

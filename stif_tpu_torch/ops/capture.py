@@ -13,7 +13,9 @@ in them:
   keeps a reference to every such tensor (the graph reads it by address, so
   the store's least-recently-used bound must not free it), and tallies the
   launches instead of adding them to the wrappers' counts: nothing runs at
-  a capture, and each replay adds the tally.
+  a capture, and each replay adds the tally. The stage marks
+  (``utils/trace.py``) find there the table of the program being
+  captured, which its replays add to.
 - the route: the switches that change which kernels a forward launches
   set flags on a model's modules (``nn.siren.set_fused``: each ``Siren``'s
   ``fused``; ``nn.dcn.set_dcn_kernel``: each ``DCNSep``'s ``use_kernel``)
@@ -47,12 +49,16 @@ _route_lock = threading.Lock()
 
 
 class Recording:
-    """What one capture holds: the store tensors its forward read, and the
-    launches of each kernel wrapper (keyed by the wrapper) it recorded."""
+    """What one capture holds: the store tensors its forward read, the
+    launches of each kernel wrapper (keyed by the wrapper) it recorded, the
+    table its stage marks write (``utils/trace.py``; None: the eager one)
+    and the captured graph's node count (None where it is not read)."""
 
     def __init__(self):
         self.tensors: Dict[int, torch.Tensor] = {}  # by id: each held once
         self.launches: Dict[Callable, int] = {}
+        self.marks = None
+        self.graph_nodes: Optional[int] = None
 
 
 def current() -> Optional[Recording]:

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from stif_tpu_torch.runtime.pipeline import InferencePipeline
+from stif_tpu_torch.utils.trace import host_ms, stage_ms
 
 ROOT = Path(__file__).resolve().parents[2]
 WEIGHTS = ROOT / "weights" / "trained_best_G.pth"
@@ -209,8 +210,11 @@ def bench_b1(model, pairs: np.ndarray, times: Sequence[float],
     per window), ``window_device_ms`` (each window's span on the compute
     stream by CUDA events; None on the CPU), ``outs`` (the uint8 frames of
     each pair, (nt, 4H, 4W, 3)), ``siren_launches`` and ``dcn_launches``
-    per streamed window, ``peak_gib``, and ``programs`` (the compiled
-    buckets' stats; None when eager)."""
+    per streamed window, ``peak_gib``, ``programs`` (the compiled
+    buckets' stats; None when eager), and ``stages``, the split of a
+    streamed window as ``bench.py`` names it: ``encode_s`` and ``decode_s``
+    from the stage marks (``utils/trace.py``), ``transfer_s`` from the
+    ``fetch.copy`` span (the frames into their host array)."""
     device = next(model.parameters()).device
     # bucket 1: the pair is padded only to the model's multiple of 4
     pipe = InferencePipeline(Quantized(model), scale=SCALE, bucket=1,
@@ -231,12 +235,20 @@ def bench_b1(model, pairs: np.ndarray, times: Sequence[float],
         end.record()
         events.append((start, end))
 
+    marks0 = stage_ms(pipe.programs, device)
+    spans0 = host_ms(pipe.programs, device)
     _sync(device)
     t0 = time.perf_counter()
     outs = list(pipe.stream(staged, timed if cuda else None))
     window_s = (time.perf_counter() - t0) / len(staged)
     n1 = _counts()
     windows = len(staged)
+    marks1 = stage_ms(pipe.programs, device)
+    spans1 = host_ms(pipe.programs, device)
+
+    def per_window_s(after, before, name):
+        return (after.get(name, 0.0) - before.get(name, 0.0)) / windows / 1e3
+
     return {
         "fps": len(times) / window_s,
         "window_s": window_s,
@@ -247,34 +259,10 @@ def bench_b1(model, pairs: np.ndarray, times: Sequence[float],
         "dcn_launches": (n1[1] - n0[1]) / windows,
         "peak_gib": _peak_gib(device),
         "programs": _programs(pipe.programs),
+        "stages": {"encode_s": per_window_s(marks1, marks0, "encode"),
+                   "decode_s": per_window_s(marks1, marks0, "decode"),
+                   "transfer_s": per_window_s(spans1, spans0, "fetch.copy")},
     }
-
-
-def stage_split(model, pair: np.ndarray, times: Sequence[float]) -> dict:
-    """Diagnostic split of one window into separate, synchronised calls
-    (``bench.py:156-182``): ``encode_s`` (``gen_feat``), ``decode_s`` (the
-    decode and its quantisation) and ``transfer_s`` (the full uint8 frames
-    to the host), each the mean of two runs after a warm-up."""
-    device = next(model.parameters()).device
-    x = torch.from_numpy(pair[None]).to(device)
-    t = torch.tensor(list(times), dtype=torch.float32, device=device)
-
-    def mean_s(fn):
-        fn()
-        _sync(device)
-        t0 = time.perf_counter()
-        for _ in range(2):
-            out = fn()
-            _sync(device)
-        return (time.perf_counter() - t0) / 2, out
-
-    with torch.inference_mode():
-        enc, feat = mean_s(lambda: model.gen_feat(x))
-        dec, frames = mean_s(lambda: quantize(model.decode(feat, x, t)))
-        t0 = time.perf_counter()
-        frames.cpu()
-        xfer = time.perf_counter() - t0
-    return {"encode_s": enc, "decode_s": dec, "transfer_s": xfer}
 
 
 def bench_batched(model, groups: np.ndarray, times: Sequence[float],
@@ -513,10 +501,11 @@ def _median(runs):
 
 def record(*, device, knobs: Knobs, weights, lr_hw, n_times: int,
            iters: int, b1_runs: List[dict], batched_runs: List[dict],
-           stages: dict, flops: int, arch: dict) -> dict:
+           flops: int, arch: dict) -> dict:
     """The bench line: every key of ``bench.py``'s line under its name
     (``metric`` ``frames_per_sec``, ``value`` the larger of the b1 and
-    batched medians), then the card, the FLOP peak ``mfu`` is held
+    batched medians; ``stages`` the median of the b1 runs' split of a
+    streamed window), then the card, the FLOP peak ``mfu`` is held
     against, launches per b1 window, peak memory per mode, the per-run
     values, and whether the modes ran as compiled programs with each
     mode's programs (first run) and captures (all runs). Device numbers are
@@ -562,7 +551,8 @@ def record(*, device, knobs: Knobs, weights, lr_hw, n_times: int,
         "gather_dtype": knobs.gather_dtype,
         "mlp_dtype": knobs.mlp_dtype,
         "dcn_impl": deform_conv._DEFAULT_IMPL,
-        "stages": {k: round(v, 4) for k, v in stages.items()},
+        "stages": {k: round(_median([r["stages"][k] for r in b1_runs]), 4)
+                   for k in b1_runs[0]["stages"]},
         "device": device_info(device),
         "card": card_line() if cuda else None,
         "mfu_peak": ({"name": f"{peak[0]} fp32 (CUDA cores)",
@@ -635,8 +625,8 @@ def run(device, knobs: Knobs, weights=WEIGHTS, lr_hw=(LR_H, LR_W),
         seed: int = 0, arch: Optional[dict] = None, compiled=None) -> dict:
     """The whole bench: build, then ``repeats`` alternations of the b1 and
     batched modes (each with its own warm-up and, when ``compiled``, its
-    own captures), the stage split once, and the record. Raises on any
-    failure; nothing is caught."""
+    own captures), and the record. Raises on any failure; nothing is
+    caught."""
     arch = dict(DEPLOYED, **(arch or {}))
     model = build(device, weights, knobs, **arch)
     rng = np.random.default_rng(seed)
@@ -651,11 +641,10 @@ def run(device, knobs: Knobs, weights=WEIGHTS, lr_hw=(LR_H, LR_W),
             batched_runs.append(bench_batched(model, groups, times,
                                               knobs.chunk,
                                               compiled=compiled))
-    stages = stage_split(model, pairs[0], times)
     out_hw = (lr_hw[0] * SCALE, lr_hw[1] * SCALE)
     flops = window_flops(model, 1, n_times, out_hw, lr_hw)
     return record(device=device, knobs=knobs, weights=weights, lr_hw=lr_hw,
                   n_times=n_times, iters=iters, b1_runs=b1_runs,
-                  batched_runs=batched_runs, stages=stages, flops=flops,
+                  batched_runs=batched_runs, flops=flops,
                   arch=arch)
 

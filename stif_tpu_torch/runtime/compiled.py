@@ -64,6 +64,14 @@ made by the capturing thread fails the capture, as ``global`` would, but
 other threads (a loader pinning its batches, another pipeline's copies) may
 go on. ``relaxed`` would let the capturing thread itself sync unseen.
 
+What a program counts (``stats``): its replays and the launches they add;
+the device time of each stage its replays marked (``utils/trace.py``: the
+marks are kernels inside the graph, writing into a table the program owns,
+zeroed after the capture); the host spans of the calls that replayed it
+(``launch.copy_in``, ``launch.replay``, and what its caller tallied for the
+window or step: staging, fetching), the first call's left out; and the node
+count of its graph, read once at the capture.
+
 A capture or a replay that fails raises; nothing falls back to the eager
 callable. The CPU has no graphs: ``program_cache`` gives None there unless a
 caller hands over a cache of its own with another capture step (the CPU
@@ -81,6 +89,7 @@ import torch
 
 from stif_tpu_torch.ops import capture as capture_scope
 from stif_tpu_torch.ops.deform_conv import dcn_route
+from stif_tpu_torch.utils import trace
 
 CAPTURE_ERROR_MODE = "thread_local"
 
@@ -134,11 +143,20 @@ def cuda_graph(fn: Callable, inputs: Tuple[torch.Tensor, ...],
                cache: "ProgramCache"):
     """The capture step on a CUDA device: ``fn(*inputs)`` captured into a
     ``torch.cuda.CUDAGraph`` on the cache's capture stream, in its pool
-    (``inputs`` are the static inputs, then the resident ones)."""
-    graph = torch.cuda.CUDAGraph()
+    (``inputs`` are the static inputs, then the resident ones). Where
+    PyTorch keeps the captured graph (``keep_graph``), its node count goes
+    to the capture's recording before the graph is instantiated."""
+    try:
+        graph, kept = torch.cuda.CUDAGraph(keep_graph=True), True
+    except TypeError:  # a PyTorch without keep_graph
+        graph, kept = torch.cuda.CUDAGraph(), False
     with torch.cuda.graph(graph, pool=cache.pool, stream=cache.stream,
                           capture_error_mode=CAPTURE_ERROR_MODE):
         out = fn(*inputs)
+    if kept:
+        capture_scope.current().graph_nodes = trace.graph_nodes(
+            graph.raw_cuda_graph())
+        graph.instantiate()
     return graph.replay, out
 
 
@@ -159,26 +177,39 @@ class Program:
         self.capture_ms = capture_ms
         self.pool_bytes = pool_bytes
         self.replays = 0
+        self.marks = recording.marks
+        self.host = trace.Spans()
+        self.graph_nodes = recording.graph_nodes
 
-    def __call__(self, *args: torch.Tensor) -> Outputs:
+    def __call__(self, *args: torch.Tensor,
+                 tally: Optional[trace.Tally] = None) -> Outputs:
         """Copy ``args`` into the static inputs, replay, count the launches;
         the static outputs (overwritten by the next replay of the cache).
-        The resident inputs are read where they were at the capture."""
-        for static, arg in zip(self.inputs, args):
-            static.copy_(arg)
-        self._replay()
+        The resident inputs are read where they were at the capture. The
+        two steps are host spans of ``tally``."""
+        with trace.span("launch.copy_in", into=tally):
+            for static, arg in zip(self.inputs, args):
+                static.copy_(arg)
+        with trace.span("launch.replay", into=tally), \
+                trace.into_marks(self.marks):
+            self._replay()
         self.replays += 1
         for wrapper, n in self.launches.items():
             wrapper.launches += n
         return self.output
 
     def stats(self) -> dict:
+        """The program's line; ``stages`` is read off the card by one small
+        copy (see the module docstring)."""
         return {"key": self.label, "replays": self.replays,
                 "warmup_ms": round(self.warmup_ms, 3),
                 "capture_ms": round(self.capture_ms, 3),
                 "pool_bytes": self.pool_bytes,
                 "held_constants": len(self.held),
-                "launches": {w.__name__: n for w, n in self.launches.items()}}
+                "launches": {w.__name__: n
+                             for w, n in self.launches.items()},
+                "graph_nodes": self.graph_nodes,
+                "stages": self.marks.read(), "host": self.host.read()}
 
 
 class ProgramCache:
@@ -224,7 +255,8 @@ class ProgramCache:
     def run(self, name: str, fn: Callable, inputs: Sequence[torch.Tensor],
             model: torch.nn.Module, static: Optional[dict] = None,
             resident: Sequence[torch.Tensor] = (),
-            state: Sequence[torch.Tensor] = ()) -> Outputs:
+            state: Sequence[torch.Tensor] = (),
+            tally: Optional[trace.Tally] = None) -> Outputs:
         """``fn(*inputs, *resident, **static)``, through the program of its
         key: a replay, or on the key's first call a warm-up, a capture and
         a replay. ``inputs`` are copied into the program's static inputs at
@@ -233,8 +265,12 @@ class ProgramCache:
         train step's parameters, gradients, optimizer state and EMA): their
         addresses enter the key, and a key's first call leaves their values
         as they were before its warm-up and capture, so that its replay
-        makes the one update of the call. Returns the program's static
-        outputs (read or copy them before the next call of this cache)."""
+        makes the one update of the call. ``tally``: the host spans of the
+        caller's window or step, bound here to the program's table when the
+        program existed before the call (else to none: a first call's
+        warm-up and capture are not counted); without one the call's own
+        spans are committed here. Returns the program's static outputs
+        (read or copy them before the next call of this cache)."""
         static = dict(static or {})
         resident = tuple(resident)
         key = (name, model,
@@ -243,8 +279,12 @@ class ProgramCache:
                      for v in resident),
                tuple(v.data_ptr() for v in state),
                tuple(sorted(static.items())), route(model))
+        own = tally is None
+        if own:
+            tally = trace.Tally()
         with self._scope():
             program = self.programs.get(key)
+            tally.bind(None if program is None else program.host)
             if program is None:
                 self._drop_stale()
                 label = (f"{name} {[tuple(v.shape) for v in inputs]}"
@@ -254,7 +294,10 @@ class ProgramCache:
                     label, lambda *xs: fn(*xs, **static), tuple(inputs),
                     resident, tuple(state))
                 self.programs[key] = program
-            return program(*inputs)
+            out = program(*inputs, tally=tally)
+        if own:
+            tally.commit()
+        return out
 
     def _drop_stale(self) -> None:
         """Forget the programs whose model's route changed since their
@@ -290,7 +333,10 @@ class ProgramCache:
             with torch.no_grad():
                 torch._foreach_copy_(list(state), saved)
 
-        with _collector_paused():
+        # the table the program's marks write: the warm-up's and the
+        # capture's marks land there too, and are zeroed after
+        marks = trace.Marks(self.device)
+        with _collector_paused(), trace.into_marks(marks):
             t0 = time.perf_counter()
             if self.cuda:
                 # the warm-up on the capture stream: the workspaces it makes
@@ -308,9 +354,11 @@ class ProgramCache:
                 restore()
             t1 = time.perf_counter()
             with capture_scope.scope(self.stream) as recording:
+                recording.marks = marks
                 replay, output = self.capture(fn, args, self)
             if state:  # a capture step that runs ``fn`` (the CPU's double)
                 restore()
+        marks.zero()
         outputs = output if isinstance(output, tuple) else (output,)
         if not outputs or not all(isinstance(v, torch.Tensor)
                                   for v in outputs):
@@ -326,7 +374,8 @@ class ProgramCache:
     def stats(self) -> List[dict]:
         """One line per live program: its key, replays, the first call's
         warm-up and capture ms, the pool bytes its capture added, the store
-        tensors it holds and its launches per replay."""
+        tensors it holds, its launches per replay, its graph's node count
+        and its ``stages`` and ``host`` tables."""
         return [p.stats() for p in self.programs.values()]
 
 

@@ -12,9 +12,15 @@ as a JAX trace bakes them in; it then captures the forward as a CUDA graph
 graph: one launch from the host in place of the forward's ~2,800. So time a
 bucket after one warm-up call. ``render_pairs``' ``ChunkedDecoder`` replays
 its passes' graphs the same way, once per chunk. ``compiled=False`` runs the
-forward eagerly on the card (the stage ranges of a profile need it), and the
-CPU, which has no graphs, always does. The inputs go up from pinned memory
-without a wait.
+forward eagerly on the card, and the CPU, which has no graphs, always does.
+The inputs go up from pinned memory without a wait.
+
+Each window's host work is a set of spans (``utils/trace.py``), tallied
+per window and added to the table of the program the window replays (the
+eager table when no program runs): ``stage.pad``, ``stage.upload`` (pin and
+the queued copy), ``launch.copy_in`` and ``launch.replay`` (in the
+program), ``fetch.wait`` (the wait for the frames' copy, or for the
+compute) and ``fetch.copy`` (into the host array returned).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 
 from stif_tpu_torch.runtime.compiled import program_cache
+from stif_tpu_torch.utils import trace
 
 
 def resolve_device(device=None) -> torch.device:
@@ -140,13 +147,18 @@ class InferencePipeline:
         it."""
         return self._launch_staged(*self.stage(frames, times))
 
-    def _run(self, name: str, fn, inputs, **static) -> torch.Tensor:
+    def _run(self, name: str, fn, inputs, tally: Optional[trace.Tally] = None,
+             **static) -> torch.Tensor:
         """``fn(*inputs, **static)``: the replay of its bucket's program
         when compiled (the program's output, overwritten by its next
-        replay), else an eager call."""
+        replay), else an eager call. ``tally``: the window's host spans,
+        bound to the program's table (or the eager one)."""
         if self.programs is None:
+            if tally is not None:
+                tally.bind(trace.EAGER_SPANS)
             return fn(*inputs, **static)
-        return self.programs.run(name, fn, inputs, self.model, static)
+        return self.programs.run(name, fn, inputs, self.model, static,
+                                 tally=tally)
 
     def _device_scope(self):
         return (torch.cuda.device(self.device) if self.device.type == "cuda"
@@ -155,13 +167,17 @@ class InferencePipeline:
     def stage(self, frames: np.ndarray, times: Sequence[float]):
         """Pad ``frames`` and put them and ``times`` on the device: a
         window for ``stream``, (x (1, N, Hp, Wp, 3), times (nt,), (h, w)
-        before padding). On a CUDA device the inputs go up from pinned
-        memory without a wait, so that staging a window does not first wait
-        for the previous one's compute to end."""
-        x, (h, w) = pad_to_multiple(np.asarray(frames, np.float32), 4,
-                                    self.bucket)
-        xt, t = self._upload(x[None], np.asarray(times, np.float32))
-        return xt, t, (h, w)
+        before padding, the window's ``trace.Tally``). On a CUDA device the
+        inputs go up from pinned memory without a wait, so that staging a
+        window does not first wait for the previous one's compute to
+        end."""
+        tally = trace.Tally()
+        with trace.span("stage.pad", into=tally):
+            x, (h, w) = pad_to_multiple(np.asarray(frames, np.float32), 4,
+                                        self.bucket)
+        with trace.span("stage.upload", into=tally):
+            xt, t = self._upload(x[None], np.asarray(times, np.float32))
+        return xt, t, (h, w), tally
 
     def _upload(self, *arrays):
         """numpy arrays as tensors on the device: on a CUDA device from
@@ -173,7 +189,8 @@ class InferencePipeline:
                              for v in ts)
             return tuple(v.to(self.device) for v in ts)
 
-    def _launch_staged(self, xt: torch.Tensor, t: torch.Tensor, hw):
+    def _launch_staged(self, xt: torch.Tensor, t: torch.Tensor, hw,
+                       tally: Optional[trace.Tally] = None):
         """Queue the compute of a window ``stage`` put on the device and
         the start of its copy to the host. On a CUDA device the copy runs
         on a side stream that waits for an event recorded when the compute
@@ -186,14 +203,15 @@ class InferencePipeline:
         and ``record_stream`` does not cover a graph's memory."""
         hp, wp = xt.shape[2], xt.shape[3]
         cuda = self.device.type == "cuda"
+        tally = tally if tally is not None else trace.Tally()
         with torch.inference_mode(), self._device_scope():
-            out = self._run("window", self.model, (xt, t),
+            out = self._run("window", self.model, (xt, t), tally,
                             out_size=(hp * self.scale, wp * self.scale),
                             test=self.test_mode,
                             local_ensemble=self.local_ensemble)
             out = out[:, 0].clone()
             if not cuda:
-                return out, None, hw
+                return out, None, hw, tally
             computed = torch.cuda.Event()
             computed.record()
             side = self._copy_stream()
@@ -207,19 +225,22 @@ class InferencePipeline:
             # the caching allocator must not hand ``out``'s memory to the
             # next window while the side stream still reads it
             out.record_stream(side)
-        return host, copied, hw
+        return host, copied, hw, tally
 
     def _fetch(self, pending) -> np.ndarray:
         """Wait for a launched window's copy; (nt, H*scale, W*scale, 3)
         numpy in memory of its own. A copy off the pinned buffer: page-locked
         memory is scarce, and the allocator reuses the buffer for a later
-        window once this one is dropped."""
-        out, copied, (h, w) = pending
+        window once this one is dropped. Commits the window's host spans."""
+        out, copied, (h, w), tally = pending
         frames = out.numpy()[:, :h * self.scale, :w * self.scale]
-        if copied is None:
-            return frames
-        copied.synchronize()
-        return frames.copy()
+        if copied is not None:
+            with trace.span("fetch.wait", into=tally):
+                copied.synchronize()
+            with trace.span("fetch.copy", into=tally):
+                frames = frames.copy()
+        tally.commit()
+        return frames
 
     def _copy_stream(self):
         if getattr(self, "_side", None) is None:
@@ -252,13 +273,26 @@ class InferencePipeline:
                             times: Sequence[float]) -> np.ndarray:
         """TMNet window render: frames (N, H, W, 3), the times enter as the
         (1, t_N) modulation; the output is the fixed-x4 interleaved sequence
-        (N + (N-1) * t_N, 4H, 4W, 3)."""
-        x, (h, w) = pad_to_multiple(np.asarray(frames, np.float32), 4,
-                                    self.bucket)
-        xt, t = self._upload(x[None], np.asarray(times, np.float32)[None])
+        (N + (N-1) * t_N, 4H, 4W, 3). The copy to the host follows a wait
+        for the compute (``fetch.wait``), the same wait the copy from
+        pageable memory would make."""
+        tally = trace.Tally()
+        with trace.span("stage.pad", into=tally):
+            x, (h, w) = pad_to_multiple(np.asarray(frames, np.float32), 4,
+                                        self.bucket)
+        with trace.span("stage.upload", into=tally):
+            xt, t = self._upload(x[None],
+                                 np.asarray(times, np.float32)[None])
         with torch.inference_mode():
-            out = self._run("tmnet", self.model, (xt, t))
-            return out[0, :, :h * 4, :w * 4].cpu().numpy()
+            out = self._run("tmnet", self.model, (xt, t), tally)
+            out = out[0, :, :h * 4, :w * 4]
+            if self.device.type == "cuda":
+                with trace.span("fetch.wait", into=tally):
+                    torch.cuda.current_stream(self.device).synchronize()
+            with trace.span("fetch.copy", into=tally):
+                frames = out.cpu().numpy()
+        tally.commit()
+        return frames
 
     def render_pairs(self, pairs: np.ndarray, times: Sequence[float],
                      chunk_size: int = 65536) -> np.ndarray:

@@ -7,13 +7,14 @@ are launched and pair 0 fetched before the capture; inside it the range
 ``window`` is one step of the stream in its steady state, which launches
 pair 2 and fetches pair 1; pair 2 is fetched after the range, so that its
 device work has ended when the capture stops. The capture is written as a Chrome trace.
-``stage_ranges`` puts ``record_function`` ranges around ``gen_feat``'s parts
-and ``decode`` from hooks set here, not in the model.
+The window's ranges are the port's host spans (``utils/trace.py``:
+staging, the static-input copy and the replay, the fetch), opened by the
+pipeline itself, so a replayed window has them too.
 
 ``analyze`` reads the trace's events:
 
 - device time of the window: every kernel, copy and fill whose launch lies
-  in the ``window`` range, each attributed to the innermost stage range
+  in the ``window`` range, each attributed to the innermost host span
   open at its launch; their union is the device's busy time;
 - the top device ops by time, with their counts;
 - the idle gaps between the window's device intervals, longest first, with
@@ -33,17 +34,14 @@ same stream. On the CPU the trace has no device events: the device fields
 are None and only the ranges' host time is read.
 
 On a CUDA device the pipeline replays the bucket's captured graph
-(``runtime/compiled.py``) unless ``compiled`` is False. A replay runs no
-Python forward, so no hook opens a stage range: ``run`` reads the compiled
-window (device busy, idle share, gaps, blocking calls; every launch outside
-the ranges) and then an eager window of the same pairs (``eager`` in the
-line, with its own unprofiled wall time), whose ranges say where the time
-goes by stage.
+(``runtime/compiled.py``) unless ``compiled`` is False. Where the time goes
+by model stage comes from the stage marks (``stages``: device ms per
+window, from the program's table, or the eager one), which a replay runs
+as kernels of its graph.
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 from pathlib import Path
 from typing import Optional
@@ -53,17 +51,10 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from stif_tpu_torch.runtime import bench
 from stif_tpu_torch.runtime.pipeline import InferencePipeline
+from stif_tpu_torch.utils.trace import SPANS, stage_ms
 
 WINDOW = "window"
-# (range, submodule of LunaTokis): gen_feat's parts, hooked
-HOOKED = (("front_trunk", "feature_extraction"),
-          ("pcd_align", "pcd_align"),
-          ("convlstm", "ConvBLSTM"),
-          ("convlstm_pcd", "ConvBLSTM.forward_net.pcd_h"),
-          ("convlstm_pcd", "ConvBLSTM.forward_net.pcd_c"),
-          ("recon_trunk", "recon_trunk"))
-METHODS = ("gen_feat", "decode")  # ranges around these two methods
-LABELS = {label for label, _ in HOOKED} | set(METHODS)
+LABELS = set(SPANS)  # the ranges device work is attributed to
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 HOST_CATS = ("cpu_op", "user_annotation") + LAUNCH_CATS
@@ -72,44 +63,6 @@ BLOCKING = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
 GAP_BINS = (("under_50us", 0, 50), ("50us_to_1ms", 50, 1000),
             ("1ms_and_over", 1000, float("inf")))
 TRACE = bench.ROOT / "runs" / "profile_torch" / "window_trace.json"
-
-
-@contextlib.contextmanager
-def stage_ranges(model):
-    """``record_function`` ranges around the ``HOOKED`` submodules (forward
-    hooks) and the ``METHODS`` (wrappers set on the instance) of a
-    ``LunaTokis``; all removed on exit."""
-    open_ranges, handles = [], []
-
-    def enter(label):
-        def hook(module, args):
-            r = record_function(label)
-            r.__enter__()
-            open_ranges.append(r)
-        return hook
-
-    def leave(module, args, out):
-        open_ranges.pop().__exit__(None, None, None)
-
-    def wrap(label, fn):
-        def call(*args, **kwargs):
-            with record_function(label):
-                return fn(*args, **kwargs)
-        return call
-
-    for label, path in HOOKED:
-        mod = model.get_submodule(path)
-        handles += [mod.register_forward_pre_hook(enter(label)),
-                    mod.register_forward_hook(leave)]
-    for name in METHODS:
-        setattr(model, name, wrap(name, getattr(model, name)))
-    try:
-        yield
-    finally:
-        for h in handles:
-            h.remove()
-        for name in METHODS:
-            delattr(model, name)  # the class's method again
 
 
 def _end(e) -> float:
@@ -243,10 +196,11 @@ def analyze(events, wall_ms: Optional[float] = None, top: int = 12,
     return rec
 
 
-def capture(model, pairs, times, trace=TRACE, compiled=None) -> list:
+def capture(model, pairs, times, trace=TRACE, compiled=None):
     """Capture one streamed window (see the module docstring; ``compiled``
-    as ``InferencePipeline`` takes it) and return the Chrome trace's
-    events; the trace is written to ``trace``."""
+    as ``InferencePipeline`` takes it). Returns the Chrome trace's events
+    (the trace is written to ``trace``) and the device ms per window of
+    each marked stage over the profiled stream's three windows."""
     device = next(model.parameters()).device
     pipe = InferencePipeline(bench.Quantized(model), scale=bench.SCALE,
                              bucket=1, device=device, compiled=compiled)
@@ -255,48 +209,37 @@ def capture(model, pairs, times, trace=TRACE, compiled=None) -> list:
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    with stage_ranges(model):
-        frames = pipe.stream(staged)
-        next(frames)  # launches pairs 0 and 1, fetches pair 0
-        with profile(activities=acts) as prof:
-            with record_function(WINDOW):
-                next(frames)  # launches pair 2, fetches pair 1
-            list(frames)  # fetches pair 2
+    before = stage_ms(pipe.programs, device)
+    frames = pipe.stream(staged)
+    next(frames)  # launches pairs 0 and 1, fetches pair 0
+    with profile(activities=acts) as prof:
+        with record_function(WINDOW):
+            next(frames)  # launches pair 2, fetches pair 1
+        list(frames)  # fetches pair 2
+    stages = {k: round((v - before.get(k, 0.0)) / len(staged), 3)
+              for k, v in stage_ms(pipe.programs, device).items()}
     trace = Path(trace)
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
-    return json.loads(trace.read_text())["traceEvents"]
+    return json.loads(trace.read_text())["traceEvents"], stages
 
 
 def run(device, knobs: bench.Knobs, weights=bench.WEIGHTS,
         lr_hw=(bench.LR_H, bench.LR_W), n_times: int = bench.N_TIMES,
         iters: int = bench.ITERS, seed: int = 0, arch=None,
         trace=TRACE, compiled=None) -> dict:
-    """The profile line: the unprofiled b1 stream (wall per window) and one
-    captured window, ``analyze``d, then the stage split; when that window
-    was a compiled one, the same stream and window eagerly (``eager``)."""
+    """The profile line: the unprofiled b1 stream (wall per window), one
+    captured window, ``analyze``d, and the stage marks' device ms per
+    window (``stages``)."""
     arch = dict(bench.DEPLOYED, **(arch or {}))
     model = bench.build(device, weights, knobs, **arch)
     times = bench.times_for(n_times)
     pairs = bench.draw_pairs(np.random.default_rng(seed), max(3, iters),
                              lr_hw)[:, 0]
-    cuda = device.type == "cuda"
-
-    def reading(mode, path):
-        b1 = bench.bench_b1(model, pairs, times, compiled=mode)
-        wall_ms = 1e3 * b1["window_s"]
-        events = capture(model, pairs, times, path, mode)
-        return b1, wall_ms, analyze(events, wall_ms if cuda else None)
-
-    b1, wall_ms, window = reading(compiled, trace)
-    stages = bench.stage_split(model, pairs[0], times)
-    eager = None
-    if b1["programs"] is not None:
-        path = Path(trace)
-        e_b1, e_wall, e_window = reading(
-            False, path.with_name(f"{path.stem}_eager{path.suffix}"))
-        eager = {"b1_fps": round(e_b1["fps"], 3),
-                 "wall_ms": round(e_wall, 3), **e_window}
+    b1 = bench.bench_b1(model, pairs, times, compiled=compiled)
+    wall_ms = 1e3 * b1["window_s"]
+    events, stages = capture(model, pairs, times, trace, compiled)
+    window = analyze(events, wall_ms if device.type == "cuda" else None)
     return {
         "tool": "profile_bench_torch",
         "device": bench.device_info(device),
@@ -309,8 +252,7 @@ def run(device, knobs: bench.Knobs, weights=bench.WEIGHTS,
         "programs": b1["programs"],
         "b1_fps": round(b1["fps"], 3),
         "wall_ms": round(wall_ms, 3),
-        **{k: round(v, 4) for k, v in stages.items()},
+        "stages": stages,
         **window,
-        "eager": eager,
         "trace": str(trace),
     }

@@ -26,6 +26,11 @@ them). So the same code runs eagerly on any device and inside a captured
 CUDA graph (``make_train_step(programs=)``), where each replay reads the lr
 and writes the parameters, moments and count where the capture found them.
 
+Both steps mark their phases on the device (``utils/trace.py``):
+``train.forward`` (zero-grad and the loss), ``train.backward``,
+``train.update`` (the clip and Adam) and ``train.ema``; a replayed step's
+marks are kernels of its graph.
+
 ``make_parallel_train_step`` is the data-parallel step (the JAX package's
 mesh-sharded one): DDP over one process per device, each rank on its rows
 of the global batch, with the loss scaled so that the gradient is the
@@ -43,6 +48,7 @@ import torch.distributed as dist
 from stif_tpu_torch.train.losses import make_pixel_criterion
 from stif_tpu_torch.train.schedules import (cosine_annealing_restart,
                                             warmup_wrap)
+from stif_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -241,18 +247,15 @@ class EMA:
             v.copy_(params[k])
 
 
-def _no_mark(_: str) -> None:
-    pass
-
-
 def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
                     cfg: TrainConfig, programs=None,
                     ema: Optional[EMA] = None) -> Callable:
-    """``train_step(batch, count, mark=None) -> {'loss', 'grad_norm'}``
+    """``train_step(batch, count, tally=None) -> {'loss', 'grad_norm'}``
     (0-dim tensors): zero-grad, forward, backward, the optimizer's update
-    at update count ``count`` and then ``ema``'s update, if given. ``mark``,
-    when given, is called with 'forward', 'backward' and 'update' after
-    each phase (a seam for timing).
+    at update count ``count`` and then ``ema``'s update, if given, each
+    phase marked (see the module docstring). ``tally``: the step's host
+    spans (``trace.Tally``), bound to its program's table, or the eager
+    one.
 
     With ``programs`` (a ``runtime.compiled.ProgramCache``) the step is one
     program per bucket (the shapes of ``lqs``, ``gt`` and ``times``): the
@@ -260,36 +263,36 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
     and every later step copies the batch into the program's static inputs
     and replays it, the state it updates left where the capture found it
     (``Optimizer.state``, ``EMA.state``: their addresses are in the key).
-    The outputs are the program's: read them before the next step. A
-    replay has no phases to ``mark``: that raises ``ValueError``."""
+    The outputs are the program's: read them before the next step."""
     loss_fn = make_loss_fn(model, cfg)
 
-    def body(lqs, gt, times, mark=_no_mark):
-        optimizer.zero_grad()
-        loss = loss_fn({"lqs": lqs, "gt": gt, "times": times})
-        mark("forward")
-        loss.backward()
-        mark("backward")
-        gnorm = optimizer.update()
+    def body(lqs, gt, times):
+        dev = lqs.device
+        with trace.mark("train.forward", dev):
+            optimizer.zero_grad()
+            loss = loss_fn({"lqs": lqs, "gt": gt, "times": times})
+        with trace.mark("train.backward", dev):
+            loss.backward()
+        with trace.mark("train.update", dev):
+            gnorm = optimizer.update()
         if ema is not None:
-            ema.update()
-        mark("update")
+            with trace.mark("train.ema", dev):
+                ema.update()
         return loss.detach(), gnorm
 
     def train_step(batch, count: int,
-                   mark: Optional[Callable[[str], None]] = None
+                   tally: Optional[trace.Tally] = None
                    ) -> Dict[str, torch.Tensor]:
         optimizer.set_lr(count)
         args = (batch["lqs"], batch["gt"], batch["times"])
         if programs is None:
-            loss, gnorm = body(*args, mark or _no_mark)
-        elif mark is not None:
-            raise ValueError("a replayed train step has no phases to mark; "
-                             "time them on an eager step (compiled=False)")
+            if tally is not None:
+                tally.bind(trace.EAGER_SPANS)
+            loss, gnorm = body(*args)
         else:
             state = optimizer.state() + ([] if ema is None else ema.state())
             loss, gnorm = programs.run("train_step", body, args, model,
-                                       state=state)
+                                       state=state, tally=tally)
         return {"loss": loss, "grad_norm": gnorm}
 
     return train_step
@@ -299,7 +302,7 @@ def make_parallel_train_step(model: torch.nn.Module, optimizer: Optimizer,
                              cfg: TrainConfig, mesh,
                              per_sample_times: bool = False,
                              ema: Optional[EMA] = None) -> Callable:
-    """Data-parallel ``train_step(batch, count, mark=None)``, op by op (no
+    """Data-parallel ``train_step(batch, count, tally=None)``, op by op (no
     CUDA graph yet: ``ROADMAP.md`` Queue 1 item 23): ``model``
     wrapped in ``DistributedDataParallel``, one process per device of the
     mesh's ``data`` axis (NCCL on the card, gloo on the CPU; the process
@@ -314,7 +317,8 @@ def make_parallel_train_step(model: torch.nn.Module, optimizer: Optimizer,
     mean-reduced one ('l1', 'l2', 'lp', equal rows per rank) is not. The
     logged ``loss`` is the global one (the ranks' sum, or their mean);
     ``grad_norm`` and the clip follow DDP's all-reduce, so they are global
-    already. ``ema`` is updated after the optimizer, on every rank."""
+    already. ``ema`` is updated after the optimizer, on every rank. The
+    phases are marked as the one-card step's are."""
     from torch.nn.parallel import DistributedDataParallel
 
     if not dist.is_initialized():
@@ -337,18 +341,20 @@ def make_parallel_train_step(model: torch.nn.Module, optimizer: Optimizer,
         return batch
 
     def train_step(batch, count: int,
-                   mark: Optional[Callable[[str], None]] = None
+                   tally: Optional[trace.Tally] = None
                    ) -> Dict[str, torch.Tensor]:
-        mark = mark or (lambda _: None)
-        optimizer.zero_grad()
-        loss = loss_fn(check(batch))
-        mark("forward")
-        (loss * world if reduction == "sum" else loss).backward()
-        mark("backward")
-        gnorm = optimizer.step(count)
+        if tally is not None:
+            tally.bind(trace.EAGER_SPANS)
+        with trace.mark("train.forward", dev):
+            optimizer.zero_grad()
+            loss = loss_fn(check(batch))
+        with trace.mark("train.backward", dev):
+            (loss * world if reduction == "sum" else loss).backward()
+        with trace.mark("train.update", dev):
+            gnorm = optimizer.step(count)
         if ema is not None:
-            ema.update()
-        mark("update")
+            with trace.mark("train.ema", dev):
+                ema.update()
         total = loss.detach().clone()
         dist.all_reduce(total)
         if reduction == "mean":

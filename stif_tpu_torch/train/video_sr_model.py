@@ -24,7 +24,11 @@ writes, in place; what the step updates is in the program's key, so a
 tensor put in place of one is a new capture, never a replay over memory
 let go of. After a step, ``p.grad`` holds that step's clipped gradient in
 a buffer allocated once. ``optimize_parameters`` fetches its logs to the
-host in one blocking copy; ``run_step`` leaves them on the device.
+host in one blocking copy; ``run_step`` leaves them on the device. A
+step's host spans (``utils/trace.py``): ``train.feed`` (pin and upload),
+``launch.copy_in`` and ``launch.replay`` (in its program), ``fetch.wait``
+(the wait for the step and its logs' copy to page-locked memory) and
+``train.logs`` (the logs read after it), added to its program's table.
 
 With ``parallel`` the model trains data-parallel (DDP, one process per
 device; see ``trainer.make_parallel_train_step``), op by op: ``compiled``
@@ -54,6 +58,7 @@ from stif_tpu_torch.train.checkpoints import CheckpointManager, load_params
 from stif_tpu_torch.train.trainer import (EMA, TrainConfig, make_optimizer,
                                           make_parallel_train_step,
                                           make_train_step)
+from stif_tpu_torch.utils import trace
 
 
 def create_model(opt: dict, device=None):
@@ -121,6 +126,7 @@ class VideoSRModel:
         models_dir = (opt.get("path") or {}).get("models")
         self.ckpt = CheckpointManager(models_dir) if models_dir else None
         self._batch = None
+        self._tally: Optional[trace.Tally] = None  # the step's host spans
 
     # ---------------------------------------------------------------- setup
 
@@ -169,31 +175,43 @@ class VideoSRModel:
             return torch.from_numpy(a).pin_memory().to(self.device,
                                                        non_blocking=True)
 
-        times = dev(data["times"])
-        if times.dim() > 2:
-            times = times.reshape(times.shape[0], -1)
-        self._batch = {"lqs": dev(data["LQs"]), "gt": dev(data["GT"]),
-                       "times": times}
+        self._tally = trace.Tally()
+        with trace.span("train.feed", into=self._tally):
+            times = dev(data["times"])
+            if times.dim() > 2:
+                times = times.reshape(times.shape[0], -1)
+            self._batch = {"lqs": dev(data["LQs"]), "gt": dev(data["GT"]),
+                           "times": times}
 
-    def run_step(self, mark=None) -> dict:
+    def run_step(self) -> dict:
         """One train step on the fed batch at the model's own update count:
         {'loss', 'grad_norm'} as 0-dim tensors on the device, no host sync
         (a compiled step's are its program's outputs: read them before the
-        next step). ``mark``: see ``make_train_step`` (eager steps only)."""
+        next step)."""
         if self._step_fn is None:
             raise RuntimeError("call init_params first")
-        metrics = self._step_fn(self._batch, self.step, mark)
+        if self._tally is None:
+            self._tally = trace.Tally()
+        metrics = self._step_fn(self._batch, self.step, self._tally)
         self.step += 1
         return metrics
 
-    def optimize_parameters(self, step: Optional[int] = None,
-                            mark=None) -> dict:
+    def optimize_parameters(self, step: Optional[int] = None) -> dict:
         """``run_step``, then its logs on the host by one blocking copy
         (``step`` is accepted for the reference's signature and not
-        read)."""
-        metrics = self.run_step(mark)
+        read); commits the step's host spans."""
+        metrics = self.run_step()
+        tally, self._tally = self._tally, None
         names = list(metrics)
-        values = torch.stack([metrics[k] for k in names]).tolist()
+        logs = torch.stack([metrics[k] for k in names])
+        if self.device.type == "cuda":
+            # queued into page-locked memory; the one wait is the stream's
+            logs = logs.to("cpu", non_blocking=True)
+            with trace.span("fetch.wait", into=tally):
+                torch.cuda.current_stream(self.device).synchronize()
+        with trace.span("train.logs", into=tally):
+            values = logs.tolist()
+        tally.commit()
         self.log = dict(zip(names, values))
         return self.log
 

@@ -4,9 +4,9 @@ of ``stif_tpu/utils/misc.py``).
 Parity targets: ``AverageMeter`` (``codes/myutils.py:228-271``),
 ``setup_logger`` / ``mkdir_and_rename`` (``codes/utils/util.py:66-97``).
 ``trace_span`` names a span for the profilers, which the reference lacked:
-the JAX package's wraps ``jax.profiler.TraceAnnotation``; this one wraps
-``torch.profiler.record_function`` (a span in ``torch.profiler`` traces)
-and, once CUDA is initialised, an NVTX range (for ``nsys``), around the
+the JAX package's wraps ``jax.profiler.TraceAnnotation``; this one is
+``utils/trace.py``'s ``span`` (a ``torch.profiler.record_function`` range
+and, once CUDA is initialised, an NVTX range, counted in a table), with the
 same wall-clock log.
 """
 
@@ -16,7 +16,8 @@ import logging
 import os
 import shutil
 import time
-from contextlib import contextmanager
+
+from stif_tpu_torch.utils.trace import span as trace_span  # noqa: F401
 
 
 class AverageMeter:
@@ -113,25 +114,3 @@ class ProgressBar:
                 f"completed: {self.completed}, "
                 f"elapsed: {int(elapsed + 0.5)}s, {rate:.1f} tasks/s\r")
         self.stream.flush()
-
-
-@contextmanager
-def trace_span(name: str, log: bool = False):
-    """A named profiler span (``torch.profiler.record_function``, and an
-    NVTX range once CUDA is initialised) around the body; with ``log``, its
-    wall-clock seconds to the 'base' logger."""
-    import torch
-
-    nvtx = torch.cuda.is_available() and torch.cuda.is_initialized()
-    t0 = time.perf_counter()
-    with torch.profiler.record_function(name):
-        if nvtx:
-            torch.cuda.nvtx.range_push(name)
-        try:
-            yield
-        finally:
-            if nvtx:
-                torch.cuda.nvtx.range_pop()
-    if log:
-        logging.getLogger("base").info("%s: %.4fs", name,
-                                       time.perf_counter() - t0)

@@ -303,9 +303,10 @@ def test_profile_cli(tmp_path):
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     assert json.loads(line.read_text()) == rec
     assert set(rec["ranges"]) == profile.LABELS
-    # the CPU: host time per range, no device fields
-    assert rec["ranges"]["gen_feat"]["host_ms"] > 0
-    assert rec["ranges"]["decode"]["host_ms"] > 0
+    # the CPU: the stage marks' time per window (the host's), no device
+    # fields
+    assert rec["stages"]["encode"] > 0 and rec["stages"]["decode"] > 0
+    assert rec["stages"]["encode"] >= rec["stages"]["encode.front"]
     assert rec["device_busy_ms"] is None and rec["idle_share"] is None
     assert rec["blocking"]["per_window"] == 0
     assert trace.exists() and rec["trace"] == str(trace)
@@ -349,9 +350,9 @@ def test_analyze_a_trace_with_device_events():
     trace (microseconds)."""
     events = [
         _ev("user_annotation", "window", 0, 1000),
-        _ev("user_annotation", "gen_feat", 10, 490),
-        _ev("user_annotation", "pcd_align", 50, 100),
-        _ev("user_annotation", "decode", 510, 390),
+        _ev("user_annotation", "launch.replay", 10, 490),
+        _ev("user_annotation", "launch.copy_in", 50, 100),
+        _ev("user_annotation", "fetch.wait", 510, 390),
         _ev("cpu_op", "aten::conv", 60, 10),
         _ev("cuda_runtime", "cudaLaunchKernel", 62, 2, corr=1),
         _ev("kernel", "k_conv", 100, 80, tid=7, corr=1),
@@ -377,12 +378,14 @@ def test_analyze_a_trace_with_device_events():
     assert rec["device_span_ms"] == pytest.approx(0.66)
     assert rec["idle_share"] == pytest.approx(0.75)
     r = rec["ranges"]
-    assert (r["pcd_align"]["device_ms"], r["pcd_align"]["launches"]) == (
-        0.08, 1)
-    assert (r["gen_feat"]["device_ms"], r["gen_feat"]["launches"]) == (
-        0.02, 2)
-    assert (r["decode"]["device_ms"], r["decode"]["launches"]) == (0.15, 2)
-    assert r["gen_feat"]["host_ms"] == 0.49 and r["convlstm"]["launches"] == 0
+    assert (r["launch.copy_in"]["device_ms"],
+            r["launch.copy_in"]["launches"]) == (0.08, 1)
+    assert (r["launch.replay"]["device_ms"],
+            r["launch.replay"]["launches"]) == (0.02, 2)
+    assert (r["fetch.wait"]["device_ms"], r["fetch.wait"]["launches"]) == (
+        0.15, 2)
+    assert (r["launch.replay"]["host_ms"] == 0.49
+            and r["stage.pad"]["launches"] == 0)
     assert rec["top_ops"][0] == {"name": "k_mm", "ms": 0.15, "count": 2}
     assert [g["ms"] for g in rec["gaps"]] == [0.29, 0.094]
     assert rec["idle_by_gap"] == {
@@ -390,7 +393,8 @@ def test_analyze_a_trace_with_device_events():
         "50us_to_1ms": {"ms": 0.384, "gaps": 2},
         "1ms_and_over": {"ms": 0.0, "gaps": 0}}
     # 320-610: Python only until aten::mm starts at 600
-    assert rec["gaps"][0] == {"ms": 0.29, "at_ms": 0.32, "range": "gen_feat",
+    assert rec["gaps"][0] == {"ms": 0.29, "at_ms": 0.32,
+                              "range": "launch.replay",
                               "host_op_share": 0.034,
                               "longest_cuda_call": "cudaLaunchKernel",
                               "longest_python_ms": 0.28,
@@ -410,14 +414,28 @@ def test_analyze_a_trace_with_device_events():
     assert b["host_blocked_ms"] == pytest.approx(0.085)
 
 
-def test_stage_ranges_leave_the_model_as_it_was(tiny):
+def test_stage_ranges_leave_the_model_as_it_was(tiny, monkeypatch):
+    """The stage marks the model makes (``utils/trace.py``) change nothing
+    it computes, set no hook or attribute on it, and are there: the
+    output with the marks made equals the output with them made inert,
+    bitwise, and the marked window adds to the eager table's ``encode``
+    and ``decode``."""
+    from stif_tpu_torch.utils import trace
+
     _, _, _, model, pairs = tiny
     x, t = torch.from_numpy(pairs[:1]), torch.tensor(TIMES)
+    with monkeypatch.context() as inert:
+        inert.setattr(trace.Marks, "open", lambda self, slot: None)
+        inert.setattr(trace.Marks, "close", lambda self, slot: None)
+        with torch.inference_mode():
+            want = model(x, t)
+    before = trace.eager_stats("cpu")["stages"]
     with torch.inference_mode():
-        want = model(x, t)
-        with profile.stage_ranges(model):
-            got = model(x, t)
+        got = model(x, t)
+    after = trace.eager_stats("cpu")["stages"]
     assert torch.equal(got, want)
+    for stage in ("encode", "decode"):
+        assert after[stage]["n"] == before.get(stage, {"n": 0})["n"] + 1
     assert "decode" not in vars(model) and "gen_feat" not in vars(model)
     assert not any(m._forward_hooks or m._forward_pre_hooks
                    for m in model.modules())
@@ -582,3 +600,15 @@ def test_dev_bicubic_bar_matches_the_tool(tmp_path):
     assert json.loads((tmp_path / "port" / "BICUBIC_BAR.json").read_text()) \
         == rec
     assert rec["n_frames"] == 18
+
+
+def test_b1_splits_its_window_by_the_marks(b1):
+    """``bench_b1``'s ``stages``: per streamed window, the marks'
+    ``encode`` and ``decode`` (host seconds on the CPU, inside the
+    window's wall) and the ``fetch.copy`` span (none on the CPU, whose
+    frames are the output itself)."""
+    st = b1["stages"]
+    assert set(st) == {"encode_s", "decode_s", "transfer_s"}
+    assert st["encode_s"] > 0 and st["decode_s"] > 0
+    assert st["encode_s"] + st["decode_s"] < b1["window_s"]
+    assert st["transfer_s"] == 0

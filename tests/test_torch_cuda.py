@@ -1177,6 +1177,11 @@ def test_compiled_train_step_on_the_card(cuda, tmp_path):
     comp.feed_data(_train_batch(16, 3))
     _, blocking = _blocking_calls(comp.optimize_parameters)
     assert blocking == 1 and comp.programs.captures == 2
+    # each replay marks the step's four phases in its program's table
+    for st in comp.programs.stats():
+        assert {k: v["n"] for k, v in st["stages"].items()} == {
+            k: st["replays"] for k in ("train.forward", "train.backward",
+                                       "train.update", "train.ema")}
 
 
 def test_compiled_train_step_resume_on_the_card(cuda, tmp_path):
@@ -1210,3 +1215,158 @@ def test_compiled_train_step_resume_on_the_card(cuda, tmp_path):
     np.testing.assert_allclose(again, loss3, rtol=1e-5)
     assert m.programs.captures == 1
     assert m.programs.stats()[0]["replays"] == 4
+
+
+# ------------------------------------------------ stage marks and spans
+
+def _stages(pipe):
+    (st,) = pipe.programs.stats()
+    return st
+
+
+def test_stage_marks_match_cuda_events(small_model, monkeypatch):
+    """An eager window's ``encode`` and ``decode`` totals in the eager
+    table against CUDA events recorded on the same stream just outside the
+    stages' mark kernels: within 2 % or 50 us. At LR 64x96 the device, not
+    the host's launches, sets the pace, so the events and the marks it
+    brackets run back to back: on a host-bound call the device would wait
+    for the Python between an event and its mark, which only one of the
+    two clocks sees."""
+    from stif_tpu_torch.utils import trace
+
+    build, _, t = small_model
+    model = build()
+    x = torch.rand(1, 2, 64, 96, 3, device=t.device)
+    events = {}
+    real_open, real_close = trace.Marks.open, trace.Marks.close
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def opened(self, slot):
+        if trace.STAGES[slot] in ("encode", "decode"):
+            events[trace.STAGES[slot]] = [event()]
+        real_open(self, slot)
+
+    def closed(self, slot):
+        real_close(self, slot)
+        if trace.STAGES[slot] in ("encode", "decode"):
+            events[trace.STAGES[slot]].append(event())
+
+    with torch.inference_mode():
+        model(x, t)  # constants, kernels, library
+        torch.cuda.synchronize()
+        before = trace.eager_stats(x.device)["stages"]
+        monkeypatch.setattr(trace.Marks, "open", opened)
+        monkeypatch.setattr(trace.Marks, "close", closed)
+        model(x, t)
+        torch.cuda.synchronize()
+        after = trace.eager_stats(x.device)["stages"]
+    for stage in ("encode", "decode"):
+        assert after[stage]["n"] == before[stage]["n"] + 1
+        marked = after[stage]["device_ms"] - before[stage]["device_ms"]
+        timed = events[stage][0].elapsed_time(events[stage][1])
+        assert abs(marked - timed) <= max(0.02 * timed, 0.05), (
+            stage, marked, timed)
+
+
+def test_stage_marks_count_the_replays_of_a_stream(small_model):
+    """A double-buffered stream of 6 windows through one program: every
+    stage's count equals the replays, each host span counts the windows
+    after the first, and the graph's node count is read."""
+    from stif_tpu_torch.runtime import InferencePipeline
+
+    build, _, _ = small_model
+    pipe = InferencePipeline(build(), bucket=4)
+    frames = np.random.default_rng(8).random((2, 8, 12, 3)).astype(
+        np.float32)
+    list(pipe.stream(pipe.stage(frames, [0.0, 0.5]) for _ in range(6)))
+    st = _stages(pipe)
+    assert st["replays"] == 6
+    assert set(st["stages"]) == {
+        "encode", "encode.front", "encode.pcd", "encode.convlstm",
+        "encode.trunk", "decode", "decode.prep", "decode.ab", "decode.cd"}
+    assert all(row["n"] == 6 and row["device_ms"] > 0
+               for row in st["stages"].values())
+    assert st["stages"]["encode"]["device_ms"] >= sum(
+        st["stages"][k]["device_ms"] for k in st["stages"]
+        if k.startswith("encode."))
+    assert {k: v["n"] for k, v in st["host"].items()} == {
+        k: 5 for k in ("stage.pad", "stage.upload", "launch.copy_in",
+                       "launch.replay", "fetch.wait", "fetch.copy")}
+    assert isinstance(st["graph_nodes"], int) and st["graph_nodes"] > 100
+
+
+def _profiled_replay(pipe, frames, times):
+    """The Chrome-trace events of one replayed window, with nothing else
+    queued."""
+    import json
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pipe.render_window(frames, times)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/trace.json"
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+
+
+def test_replay_range_opens_before_its_first_mark(small_model):
+    """In a profiler trace of one replayed window, the ``launch.replay``
+    range opens before the window's first ``stage_mark_kernel``, on the
+    same clock, and the kernel runs twice per stage."""
+    from stif_tpu_torch.runtime import InferencePipeline
+
+    build, _, _ = small_model
+    pipe = InferencePipeline(build(), bucket=4)
+    frames = np.random.default_rng(9).random((2, 8, 12, 3)).astype(
+        np.float32)
+    for _ in range(2):
+        pipe.render_window(frames, [0.0, 0.5])
+    events = _profiled_replay(pipe, frames, [0.0, 0.5])
+    (replay,) = [e for e in events if e.get("ph") == "X"
+                 and e.get("cat") == "user_annotation"
+                 and e.get("name") == "launch.replay"]
+    marks = [e for e in events if e.get("ph") == "X"
+             and e.get("cat") == "kernel"
+             and "stage_mark_kernel" in e.get("name", "")]
+    assert len(marks) == 2 * len(_stages(pipe)["stages"])
+    assert replay["ts"] < min(e["ts"] for e in marks)
+
+
+def test_marks_change_nothing_a_replayed_window_computes(small_model,
+                                                        monkeypatch):
+    """A window captured with its stage marks equals, bitwise, one
+    captured with the marks made inert: that graph holds no
+    ``stage_mark_kernel``, two nodes fewer per stage, and its stages
+    table stays empty."""
+    from stif_tpu_torch.runtime import InferencePipeline
+    from stif_tpu_torch.utils import trace
+
+    build, _, _ = small_model
+    frames = np.random.default_rng(10).random((2, 8, 12, 3)).astype(
+        np.float32)
+    times = [0.0, 0.5]
+    marked_pipe = InferencePipeline(build(), bucket=4)
+    want = marked_pipe.render_window(frames, times)
+    marked = _stages(marked_pipe)
+    with monkeypatch.context() as inert:
+        inert.setattr(trace.Marks, "open", lambda self, slot: None)
+        inert.setattr(trace.Marks, "close", lambda self, slot: None)
+        pipe = InferencePipeline(build(), bucket=4)
+        got = pipe.render_window(frames, times)
+        events = _profiled_replay(pipe, frames, times)
+    st = _stages(pipe)
+    np.testing.assert_array_equal(got, want)
+    assert not any("stage_mark_kernel" in e.get("name", "") for e in events)
+    assert st["stages"] == {} and st["replays"] == 2
+    assert marked["graph_nodes"] - st["graph_nodes"] == 2 * len(
+        marked["stages"])

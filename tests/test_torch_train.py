@@ -159,10 +159,15 @@ def test_train_step_matches_jax(reference):
     """Loss rtol 1e-5, pre-clip grad norm rtol 1e-4, every parameter's
     gradient within 1e-4 of its largest entry. The legacy pixel-shuffle
     head gets no gradient on either side."""
+    from stif_tpu_torch.utils import trace
+
     model, step, batch = _port_step(reference)
-    marks = []
-    out = step(batch, 0, marks.append)
-    assert marks == ["forward", "backward", "update"]
+    before = trace.eager_stats("cpu")["stages"]
+    out = step(batch, 0)
+    after = trace.eager_stats("cpu")["stages"]
+    # the phases' marks, and no model stage (grad is on)
+    assert {k for k in after if after[k] != before.get(k)} == {
+        "train.forward", "train.backward", "train.update"}
     np.testing.assert_allclose(out["loss"].item(), reference["loss"],
                                rtol=1e-5)
     np.testing.assert_allclose(out["grad_norm"].item(),

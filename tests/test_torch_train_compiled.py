@@ -143,8 +143,9 @@ def test_compiled_step_matches_jax(reference):  # noqa: F811
                     1e-4 * np.abs(w).max(), name
     np.testing.assert_allclose(losses, reference["losses"], rtol=1e-3)
     assert cache.captures == 1 and cache.stats()[0]["replays"] == 3
-    with pytest.raises(ValueError, match="no phases"):
-        step(batch, 3, lambda _: None)
+    # the replays' phase marks (no EMA here): one of each a replay
+    assert {k: v["n"] for k, v in cache.stats()[0]["stages"].items()} == {
+        "train.forward": 3, "train.backward": 3, "train.update": 3}
 
 
 def test_test_and_validation_between_steps_capture_nothing(tmp_path):
@@ -240,7 +241,8 @@ def test_compiled_option(tmp_path):
     """None: graphs on a card, the eager step on the CPU; True raises off a
     card; data-parallel with True or a cache raises ``NotImplementedError``
     naming the ROADMAP item, with None or False it is eager (it needs a
-    process group); a mark on a compiled step raises."""
+    process group); a compiled step's replays mark its four phases in its
+    program's table."""
     assert VideoSRModel(_opt(tmp_path), device="cpu").programs is None
     assert VideoSRModel(_opt(tmp_path), device="cpu",
                         compiled=False).programs is None
@@ -253,9 +255,14 @@ def test_compiled_option(tmp_path):
     with pytest.raises(RuntimeError, match="process group"):
         VideoSRModel(_opt(tmp_path), device="cpu", parallel=True)
     m = _model(tmp_path, double_cache())
-    m.feed_data(_batch())
-    with pytest.raises(ValueError, match="no phases"):
-        m.optimize_parameters(mark=lambda _: None)
+    for _ in range(3):
+        _step(m)
+    (st,) = m.programs.stats()
+    assert st["replays"] == 3
+    assert {k: v["n"] for k, v in st["stages"].items()} == {
+        k: 3 for k in ("train.forward", "train.backward", "train.update",
+                       "train.ema")}
+    assert all(v["device_ms"] > 0 for v in st["stages"].values())
 
 
 def test_validator_replays_its_probe_after_an_in_place_reload(tmp_path):
