@@ -8,8 +8,8 @@ Run from the root of a checkout. In order:
 1. device: the card's name and power limit; TF32 off for cuDNN convs and
    matmuls (fp32 parity with the JAX reference);
 2. build: every CUDA kernel of the port, from ``stif_tpu_torch/csrc``
-   (``siren_fused.cu``, ``deform_conv.cu``), one ``nvcc`` per source, all
-   started together;
+   (``siren_fused.cu``, ``deform_conv.cu``, ``grid_sample.cu``), one
+   ``nvcc`` per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the decoder's three nets with their real field splits (max|d| <= 1e-4):
    contiguous fields, then the decoder's real layouts (column slices of a
@@ -28,6 +28,15 @@ Run from the root of a checkout. In order:
    the products at 3 TF32 passes on the tensor cores, the fp32 figure
    beside) and at each of the window's six call shapes (L1, L2, L3 at B 1
    and B 2), summed over a window's 42 calls beside the window's bound;
+3c. the ``grid_sample`` kernel against its plain version (``F.grid_sample``
+   and the channels-last copy), bitwise, at the eight gathers of an x4
+   720p window (LR 192x320 to 768x1280, 8 times: stage A's 200-channel
+   nearest gather and stage B's 198-channel one at one time's grid, stage
+   C's 198-channel LR fields broadcast over the times and 64-channel HR
+   feature field at both warp grids, the skip source's two 3-channel
+   slices broadcast over the times), then timed beside its bound (bytes
+   written, unique source and grid bytes at the memory rate) and the plain
+   version's time (``library_ms``), each and summed over the window;
 4. main path: the deployed full-width model (``rgb_skip`` bicubic) with the
    trained weights ``weights/trained_best_G.pth`` through
    ``InferencePipeline.render_window`` on a seeded 96x160 LR pair at 8 times,
@@ -38,14 +47,14 @@ Run from the root of a checkout. In order:
    window's device time by kernel; then, eagerly (a switch captures anew),
    the same window with the plain SIREN (max|d| <= 1e-3) and a small
    window against the port on the CPU (max|d| <= 1e-3); 42 ``dcn_forward``
-   launches per window, the window with the plain DCN (max|d| <= 1e-3),
-   both timed in 5 alternating runs and profiled (with the host-blocking
-   calls of each profiled call); once the warm-up window has built the
-   bucket's constants (``ops/constants.py``) and graph, the window's replay
-   and ``stream``'s launches run under CUDA's sync debug mode "error",
-   which raises on any host-blocking call (the same check follows every
-   path named below as "no host sync"; on an eager path it wraps the model
-   call, on a compiled one the replay);
+   and 8 ``grid_sample`` launches per window, the window with the plain
+   DCN (max|d| <= 1e-3), both timed in 5 alternating runs and profiled
+   (with the host-blocking calls of each profiled call); once the warm-up
+   window has built the bucket's constants (``ops/constants.py``) and
+   graph, the window's replay and ``stream``'s launches run under CUDA's
+   sync debug mode "error", which raises on any host-blocking call (the
+   same check follows every path named below as "no host sync"; on an
+   eager path it wraps the model call, on a compiled one the replay);
 5. the rest of the serving surface, same model, weights and pair, eagerly
    (phases 11 and 12 hold each captured path against its eager run):
    a. the kernel against plain at the chunked stages' shapes (8 x 65,536
@@ -200,7 +209,7 @@ Run from the root of a checkout. In order:
 
 Any failed check raises and the script exits non-zero; without a CUDA
 device it exits 2 and prints no result. ``python3 chip_smoke.py --kernels``
-stops after phases 3, 3b, 5a and 7a and prints no result line (for work on
+stops after phases 3, 3b, 3c, 5a and 7a and prints no result line (for work on
 a kernel). Every path counts the launches of each kernel: a path through an
 encoder must launch the DCN forward kernel, a decode of given features must
 not.
@@ -261,6 +270,15 @@ DCN_WINDOW_CALLS = {(lvl, b): 2 * n for lvl in DCN_LEVELS
                     for b, n in ((1, 1), (2, 6))}
 DCN_STEP_FORWARD = 78  # a train step: 42, and 36 recomputed by remat
 DCN_ALTERNATIONS = 5  # [4]: windows timed with the DCN kernels and plain
+# grid_sample launches of a full-grid decode with the bicubic skip: stages
+# A and B 1 each, stage C 2 at each warp grid, the skip 2; a chunk step of
+# the chunked decode: 5 in A+B, 8 in C+D; a train step: the decode, and
+# the same again where the backward recomputes it (remat)
+GATHERS_PER_WINDOW = 8
+GATHERS_PER_CHUNK = 13
+GATHERS_PER_STEP = 16
+GATHERS_ENSEMBLE = 36   # local ensemble: 4 passes of 9 (stage B re-samples)
+GATHERS_TEST_MODE = 11  # test mode: stages B and C gather from HR inputs
 
 
 def log(msg: str) -> None:
@@ -691,6 +709,86 @@ def dcn_kernel_phase(device, peaks, card):
             "dcn_backward": (max(e for _, e in errs), *times["backward"])}
 
 
+# ---------------------------------------------------------------- phase 3c
+
+GATHER_LR = (192, 320)   # the x4 720p window's padded LR bucket
+GATHER_HR = (768, 1280)  # and its output grid
+GATHER_NT = 8
+GATHER_FLOW = 3.0        # LR pixels of the warp around each HR cell centre
+# the eight gathers of one x4 720p window (``LunaTokis._decode_pass``):
+# name -> (source channels, the channel slice read, source size, source
+# batch (1 is broadcast over the grid's batch), grid, mode). Grid "cells"
+# is one time's HR cell centres (1, Q, 2); "g1", "g2" the nt warped grids
+GATHER_CASES = {
+    "a": (200, slice(None), GATHER_LR, 1, "cells", "nearest"),
+    "b": (198, slice(None), GATHER_LR, 1, "cells", "bilinear"),
+    "c_lr.g1": (198, slice(None), GATHER_LR, 1, "g1", "bilinear"),
+    "c_lr.g2": (198, slice(None), GATHER_LR, 1, "g2", "bilinear"),
+    "c_hr.g1": (64, slice(None), GATHER_HR, GATHER_NT, "g1", "bilinear"),
+    "c_hr.g2": (64, slice(None), GATHER_HR, GATHER_NT, "g2", "bilinear"),
+    "skip.g1": (6, slice(0, 3), GATHER_HR, 1, "g1", "bilinear"),
+    "skip.g2": (6, slice(3, 6), GATHER_HR, 1, "g2", "bilinear"),
+}
+
+
+def gather_phase(device, peaks):
+    """[3c]: the ``grid_sample`` kernel against its plain version bitwise,
+    then timed, at ``GATHER_CASES``. Returns (mismatched words, ms,
+    library ms, bound ms), summed over the cases: one window's gathers."""
+    import torch
+    from stif_tpu_torch.ops import grid_sample, grid_sample_plain
+    from stif_tpu_torch.ops.grid_sample import launch_plan
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    HH, WW = GATHER_HR
+    q = HH * WW
+    ys = (torch.arange(HH, device=device) * 2 + 1) / HH - 1
+    xs = (torch.arange(WW, device=device) * 2 + 1) / WW - 1
+    cells = torch.stack(torch.meshgrid(xs, ys, indexing="xy"), -1)
+    cells = cells.reshape(1, q, 2)
+    reach = torch.tensor([2 * GATHER_FLOW / GATHER_LR[1],
+                          2 * GATHER_FLOW / GATHER_LR[0]], device=device)
+    grids = {"cells": cells}
+    for g in ("g1", "g2"):
+        flow = torch.rand(GATHER_NT, q, 2, generator=gen, device=device)
+        grids[g] = (cells + (flow * 2 - 1) * reach).clamp(-1 + 1e-6,
+                                                         1 - 1e-6)
+        del flow
+    total = [0, 0.0, 0.0, 0.0]
+    for name, (c, part, (h, w), n, g, mode) in GATHER_CASES.items():
+        grid = grids[g]
+        src = torch.rand(n, h, w, c, generator=gen, device=device)
+        x = src[..., part].expand(grid.shape[0], -1, -1, -1)
+        cw = x.shape[-1]
+        got = grid_sample(x, grid, mode=mode)
+        want = grid_sample_plain(x, grid, mode=mode)
+        bad = (got.view(torch.int32) != want.view(torch.int32)).sum().item()
+        worst = (got - want).abs().max().item()
+        del got, want
+        ms = cuda_ms(lambda: grid_sample(x, grid, mode=mode), 10)
+        lib_ms = cuda_ms(lambda: grid_sample_plain(x, grid, mode=mode), 3)
+        # bytes written, the source's read part once, the grid
+        nbytes = 4 * (grid.shape[0] * q * cw + n * h * w * cw + grid.numel())
+        bound_ms = 1e3 * nbytes / peaks[1]
+        vec, group = launch_plan(cw, x.stride()[:3], (x.data_ptr(),))
+        log(f"  {name}: {mode}, C {cw}, {grid.shape[0] * q} queries from "
+            f"{tuple(x.shape)} (strides {tuple(x.stride())}; {4 * vec}-byte "
+            f"vectors, {group} lanes a query): kernel {ms:.3f} ms "
+            f"({nbytes / ms / 1e6:.0f} GB/s), bound {bound_ms:.3f} ms "
+            f"({nbytes / 1e9:.2f} GB), library (F.grid_sample + "
+            f".contiguous()) {lib_ms:.3f} ms; {bad} words differ, max|d| "
+            f"{worst:.3e}")
+        require(f"{name}: kernel bitwise the plain version", bad, bad == 0)
+        for i, v in enumerate((bad, ms, lib_ms, bound_ms)):
+            total[i] += v
+        del src, x
+    log(f"  a window's {len(GATHER_CASES)} gathers: kernel {total[1]:.3f} "
+        f"ms, bound {total[3]:.3f} ms, library {total[2]:.3f} ms")
+    del grids
+    torch.cuda.empty_cache()
+    return tuple(total)
+
+
 def device_profile(fn, wall_ms: float, what: str, card: str,
                    top: int = 12) -> None:
     """Device time of one call of ``fn`` by kernel (``torch.profiler``), the
@@ -794,14 +892,16 @@ def host_syncs(fn) -> int:
 
 def main_path(card: str):
     """The deployed model through ``InferencePipeline.render_window``, which
-    replays the bucket's captured CUDA graph. Returns the SIREN and
-    ``dcn_forward`` launch counts of the counted windows."""
+    replays the bucket's captured CUDA graph. Returns the SIREN,
+    ``dcn_forward`` and ``grid_sample`` launch counts of the counted
+    windows."""
     import torch
     from stif_tpu_torch.convert import load_pth
     from stif_tpu_torch.models import LunaTokis
     from stif_tpu_torch.nn.dcn import set_dcn_kernel
     from stif_tpu_torch.nn.siren import set_fused
-    from stif_tpu_torch.ops import dcn_backward, dcn_forward, siren_apply_fused
+    from stif_tpu_torch.ops import (dcn_backward, dcn_forward, grid_sample,
+                                    siren_apply_fused)
     from stif_tpu_torch.runtime import InferencePipeline
 
     model = LunaTokis(rgb_skip=True, rgb_skip_bicubic=True)
@@ -813,7 +913,7 @@ def main_path(card: str):
     frames = rng.random((2,) + LR_HW + (3,)).astype(np.float32)
     times = [i / N_TIMES for i in range(N_TIMES)]
 
-    siren_apply_fused.launches = 0
+    siren_apply_fused.launches = grid_sample.launches = 0
     dcn_forward.launches = dcn_backward.launches = 0
     torch.cuda.reset_peak_memory_stats()
     out = pipe.render_window(frames, times)  # warm-up
@@ -824,6 +924,7 @@ def main_path(card: str):
         window_s.append(time.perf_counter() - t0)
     launches = siren_apply_fused.launches
     dcn = dcn_counts()
+    gathers = grid_sample.launches
     peak = torch.cuda.max_memory_allocated()
     # the first window ran once eagerly (the capture's warm-up), then as
     # every window since: a replay of the captured graph
@@ -842,11 +943,16 @@ def main_path(card: str):
         raise AssertionError(f"DCN launches (forward, backward) {dcn} in "
                              f"{n_windows} windows, expected {DCN_PER_PAIR} "
                              "forward launches per window")
+    if gathers != GATHERS_PER_WINDOW * n_windows:
+        raise AssertionError(f"{gathers} grid_sample launches in {n_windows} "
+                             f"windows, expected {GATHERS_PER_WINDOW} per "
+                             "window")
     (stats,) = pipe.programs.stats()
     log(f"  window {out.shape}, finite, SIREN launches {launches} in "
         f"{n_windows} windows (4 replays of the captured graph and the "
         f"capture's eager warm-up; 3 per window), dcn_forward launches "
-        f"{dcn[0]} ({DCN_PER_PAIR} per window), no dcn_backward; the "
+        f"{dcn[0]} ({DCN_PER_PAIR} per window), no dcn_backward, grid_sample "
+        f"launches {gathers} ({GATHERS_PER_WINDOW} per window); the "
         f"capture: warm-up {stats['warmup_ms']:.1f} ms, capture "
         f"{stats['capture_ms']:.1f} ms, pool "
         f"{stats['pool_bytes'] / 2**30:.3f} GiB, "
@@ -942,7 +1048,7 @@ def main_path(card: str):
     log(f"  16x16 window, GPU (kernel) vs CPU (plain): max|d| = {err:.3e}")
     if gpu.shape != ref.shape or not err <= WINDOW_BAR:
         raise AssertionError(f"GPU vs CPU window: {err}")
-    return launches, dcn[0]
+    return launches, dcn[0], gathers
 
 
 # ----------------------------------------------------------------- phase 5
@@ -1005,17 +1111,19 @@ class Launches:
     count to 0, drives one path, checks the counts it read and adds them up.
     ``dcn`` is the (forward, backward) DCN launches the path must make;
     ``"some"`` asks for at least one forward launch, None for none at
-    all."""
+    all. ``gathers`` is the ``grid_sample`` launches the path must make,
+    None to count them unchecked."""
 
     def __init__(self):
         self.total = 0
         self.dcn = [0, 0]
+        self.gathers = 0
 
-    def run(self, what: str, expect: int, fn, dcn="some"):
+    def run(self, what: str, expect: int, fn, dcn="some", gathers=None):
         from stif_tpu_torch.ops import (dcn_backward, dcn_forward,
-                                        siren_apply_fused)
+                                        grid_sample, siren_apply_fused)
 
-        siren_apply_fused.launches = 0
+        siren_apply_fused.launches = grid_sample.launches = 0
         dcn_forward.launches = dcn_backward.launches = 0
         out = fn()
         n = siren_apply_fused.launches
@@ -1027,6 +1135,12 @@ class Launches:
                 got != ((0, 0) if dcn is None else tuple(dcn))):
             raise AssertionError(f"{what}: DCN launches (forward, backward) "
                                  f"{got}, expected {dcn}")
+        g = grid_sample.launches
+        if gathers is not None and g != gathers:
+            raise AssertionError(f"{what}: {g} grid_sample launches, "
+                                 f"expected {gathers}")
+        self.gathers += g
+        self.last_gathers = g
         self.total += n
         self.dcn = [a + b for a, b in zip(self.dcn, got)]
         self.last = got
@@ -1103,7 +1217,7 @@ def slice_phase(card: str, device) -> int:
     HH, WW = LR_HW[0] * SCALE, LR_HW[1] * SCALE
     window = count.run("render_window", 3,
                        lambda: pipe.render_window(frames, times),
-                       dcn=(DCN_PER_PAIR, 0))
+                       dcn=(DCN_PER_PAIR, 0), gathers=GATHERS_PER_WINDOW)
 
     log("[5b] ChunkedDecoder.decode vs the full decode of the same features")
     x = torch.from_numpy(frames[None]).to(device)
@@ -1112,24 +1226,24 @@ def slice_phase(card: str, device) -> int:
         feat = model.gen_feat(x)
         full = count.run("decode", 3,
                          lambda: model.decode(feat, x, t).cpu().numpy(),
-                         dcn=None)
+                         dcn=None, gathers=GATHERS_PER_WINDOW)
     steps = -(-HH * WW // CHUNK)
     decoder = ChunkedDecoder(model, CHUNK, compiled=False)  # as in [5c]-[5f]
     chunked = count.run("ChunkedDecoder.decode", 3 * steps,
                         lambda: decoder.decode(feat, x, t, (HH, WW)),
-                        dcn=None)
+                        dcn=None, gathers=GATHERS_PER_CHUNK * steps)
     d = max_abs(chunked, full)
     require(f"chunked ({steps} steps of {CHUNK}) vs full decode, max|d|", d,
             d <= KERNEL_BAR)
     runs, peak = count.run(
         "ChunkedDecoder.decode, timed", TIMED_RUNS * 3 * steps,
         lambda: timed(lambda: decoder.decode(feat, x, t, (HH, WW))),
-        dcn=None)
+        dcn=None, gathers=TIMED_RUNS * GATHERS_PER_CHUNK * steps)
     with torch.inference_mode():
         full_runs, full_peak = count.run(
             "decode, timed", TIMED_RUNS * 3,
             lambda: timed(lambda: model.decode(feat, x, t).cpu().numpy()),
-            dcn=None)
+            dcn=None, gathers=TIMED_RUNS * GATHERS_PER_WINDOW)
     log(f"  chunked decode {fmt_runs(runs)}, peak {peak:.2f} GiB; full "
         f"decode {fmt_runs(full_runs)}, peak {full_peak:.2f} GiB (host copy "
         f"included) [{card}]")
@@ -1138,12 +1252,13 @@ def slice_phase(card: str, device) -> int:
     log("[5c] render_pairs of two pairs vs render_window of each")
     pairs = np.stack([frames, other])
     both = count.run("render_pairs, B = 2", 3 * steps,
-                     lambda: pipe.render_pairs(pairs, times))
+                     lambda: pipe.render_pairs(pairs, times),
+                     gathers=GATHERS_PER_CHUNK * steps)
     if both.shape != (2, N_TIMES, HH, WW, 3):
         raise AssertionError(f"render_pairs shape {both.shape}")
     ref_other = count.run("render_window", 3,
                           lambda: pipe.render_window(other, times),
-                          dcn=(DCN_PER_PAIR, 0))
+                          dcn=(DCN_PER_PAIR, 0), gathers=GATHERS_PER_WINDOW)
     d = max(max_abs(both[0], window), max_abs(both[1], ref_other))
     require("render_pairs vs render_window, max|d|", d, d <= WINDOW_BAR)
     runs, peak = count.run(
@@ -1164,11 +1279,13 @@ def slice_phase(card: str, device) -> int:
     log("[5d] local-ensemble, test-mode and zoom windows")
     cpu_model = deployed_model()
     cpu_pipe = InferencePipeline(cpu_model, device="cpu")
-    for mode, expect in (("local_ensemble", 12), ("test_mode", 3)):
+    for mode, expect, per in (("local_ensemble", 12, GATHERS_ENSEMBLE),
+                              ("test_mode", 3, GATHERS_TEST_MODE)):
         setattr(pipe, mode, True)
         setattr(cpu_pipe, mode, True)
         out = count.run(mode, expect,
-                        lambda: pipe.render_window(frames, times))
+                        lambda: pipe.render_window(frames, times),
+                        gathers=per)
         if out.shape != window.shape or not np.isfinite(out).all():
             raise AssertionError(f"{mode} window: shape {out.shape}")
         runs, peak = count.run(
@@ -1181,13 +1298,15 @@ def slice_phase(card: str, device) -> int:
             pipe.render_window(frames, times)
         set_fused(model, False)
         plain = count.run(f"{mode}, plain SIREN", 0,
-                          lambda: pipe.render_window(frames, times))
+                          lambda: pipe.render_window(frames, times),
+                          gathers=per)
         set_fused(model, True)
         d = max_abs(out, plain)
         require(f"{mode}: kernel window vs plain-SIREN window, max|d|", d,
                 d <= WINDOW_BAR)
         gpu = count.run(f"{mode}, 16x16", expect,
-                        lambda: pipe.render_window(small, times[:2]))
+                        lambda: pipe.render_window(small, times[:2]),
+                        gathers=per)
         d = max_abs(gpu, cpu_pipe.render_window(small, times[:2]))
         require(f"{mode}: 16x16 window, GPU (kernel) vs CPU, max|d|", d,
                 d <= WINDOW_BAR)
@@ -1211,7 +1330,9 @@ def slice_phase(card: str, device) -> int:
 
     log("[5e] knobs against the fp32 window (trained weights)")
     bf16, fp8 = torch.bfloat16, torch.float8_e4m3fn
-    # knob -> (constructor arguments, launches per window, bar on max|d|)
+    # knob -> (constructor arguments, SIREN launches per window, bar on
+    # max|d|); stagec_nearest gathers stage C's LR fields in two parts, 10
+    # grid_sample launches a window
     knobs = {
         "encode_splitk (plain path)": (dict(encode_splitk=True, fused=False),
                                        0, lambda d: d <= 1e-4),
@@ -1227,10 +1348,11 @@ def slice_phase(card: str, device) -> int:
     }
     knob_pipes = {}
     for name, (kw, expect, bar) in knobs.items():
+        per = GATHERS_PER_WINDOW + 2 * (name == "stagec_nearest")
         knob_pipes[name] = (InferencePipeline(deployed_model(**kw),
-                                              compiled=False), expect)
+                                              compiled=False), expect, per)
         out = count.run(name, expect, lambda: knob_pipes[name][0]
-                        .render_window(frames, times))
+                        .render_window(frames, times), gathers=per)
         if not np.isfinite(out).all():
             raise AssertionError(f"{name}: window not finite")
         d = max_abs(out, window)
@@ -1277,10 +1399,10 @@ def slice_phase(card: str, device) -> int:
     clips = [render_sequence(990_000 + k, 7, (144, 192)) for k in range(2)]
     n_windows = sum((c.shape[0] + 1) // 2 - 1 for c in clips)
 
-    def psnr_by_time(p, expect, dcn="some"):
+    def psnr_by_time(p, expect, dcn="some", per=GATHERS_PER_WINDOW):
         scores = count.run("quality windows", expect * n_windows, lambda: [
             s for clip in clips for s in _score_space_time_sr(p, clip)[0]],
-            dcn=dcn)
+            dcn=dcn, gathers=per * n_windows)
         return {tq: float(np.mean([ps for tt, ps, _ in scores if tt == tq]))
                 for tq in (0.0, 0.5)}
 
@@ -1305,8 +1427,8 @@ def slice_phase(card: str, device) -> int:
         if not abs(kernel_q[tq] - plain_dcn_q[tq]) <= PSNR_BAR:
             raise AssertionError(f"DCN-kernel PSNR at t={tq} is off the "
                                  f"plain DCN's by more than {PSNR_BAR} dB")
-    for name, (p, expect) in knob_pipes.items():
-        q = psnr_by_time(p, expect)
+    for name, (p, expect, per) in knob_pipes.items():
+        q = psnr_by_time(p, expect, per=per)
         log(f"  {name}: PSNR t=0 {q[0.0]:.4f} dB ({q[0.0] - kernel_q[0.0]:+.4f}"
             f"), t=0.5 {q[0.5]:.4f} dB ({q[0.5] - kernel_q[0.5]:+.4f})")
     return count
@@ -1573,7 +1695,7 @@ def zoo_phase(card: str, device) -> int:
 
 TRAIN_BUCKETS = ((4, 48), (2, 48), (8, 24))  # (scale, LR size): GT 192, 96
 MORE_BUCKETS = ((3, 48), (6, 32))  # the rest of the r5 plan: compiled only
-TURNS = 4  # [8a]: timed rounds per bucket, eager and compiled in turns
+TURNS = 3  # [8a]: timed rounds per bucket, eager and compiled in turns
 STEP_LOSS_RTOL, STEP_GNORM_RTOL = 1e-4, 1e-3  # [8a], [8c]: two runs' steps
 RESUME_RTOL = 1e-5                             # [8d], next loss after resume
 
@@ -1858,6 +1980,10 @@ def train_phase(card: str, device) -> int:
         raise AssertionError(f"DCN launches ({fwd}, {bwd}) in {n_steps} "
                              f"train steps, expected {DCN_STEP_FORWARD} "
                              f"forward and {DCN_PER_PAIR} backward a step")
+    if count.last_gathers != GATHERS_PER_STEP * n_steps:
+        raise AssertionError(f"{count.last_gathers} grid_sample launches in "
+                             f"{n_steps} train steps, expected "
+                             f"{GATHERS_PER_STEP} a step")
     torch.cuda.empty_cache()
     log(f"    [8a]: {time.perf_counter() - t8:.1f} s")
 
@@ -1893,7 +2019,9 @@ def train_phase(card: str, device) -> int:
         t0 = time.perf_counter()
         logs.append(count.run(f"train step on {dev}", 0,
                               m.optimize_parameters,
-                              dcn=None if dev == "cpu" else "some"))
+                              dcn=None if dev == "cpu" else "some",
+                              gathers=0 if dev == "cpu" else
+                              GATHERS_PER_STEP))
         log(f"  {dev}: loss {logs[-1]['loss']:.6f}, grad norm "
             f"{logs[-1]['grad_norm']:.4f}, {time.perf_counter() - t0:.2f} s; "
             f"DCN launches (forward, backward) {count.last}")
@@ -1963,13 +2091,16 @@ def train_phase(card: str, device) -> int:
     params = model.net.state_dict()
     # the first probe captures its bucket: its eager warm-up launches 3
     m_kernel = count.run("validation probe", 3 * windows + 3,
-                         lambda: validator.validate(params))
+                         lambda: validator.validate(params),
+                         gathers=GATHERS_PER_WINDOW * (windows + 1))
     captures = validator._pipe.programs.captures
     m_ema = count.run("validation probe, EMA weights loaded in place",
                       3 * windows, lambda: validator.validate(
-                          model.ema_params))
+                          model.ema_params),
+                      gathers=GATHERS_PER_WINDOW * windows)
     m_eager = count.run("validation probe, eager", 3 * windows,
-                        lambda: eager_v.validate(model.ema_params))
+                        lambda: eager_v.validate(model.ema_params),
+                        gathers=GATHERS_PER_WINDOW * windows)
     new = validator._pipe.programs.captures - captures
     if new or m_ema != m_eager:
         raise AssertionError(f"second probe: {new} new captures; compiled "
@@ -2362,13 +2493,15 @@ def bench_phase(card: str, device) -> Launches:
         f"LR {LR_HW[0]}x{LR_HW[1]}, {N_TIMES} times, trained weights")
     b1 = count.run("bench_b1", 3 * windows,
                    lambda: bench.bench_b1(model, pairs, times),
-                   dcn=(DCN_PER_PAIR * windows, 0))
+                   dcn=(DCN_PER_PAIR * windows, 0),
+                   gathers=GATHERS_PER_WINDOW * windows)
     if (b1["siren_launches"], b1["dcn_launches"]) != (3, DCN_PER_PAIR):
         raise AssertionError(f"b1 launches per window "
                              f"{b1['siren_launches']}, {b1['dcn_launches']}")
     full = count.run("bench_batched full", 3 * calls,
                      lambda: bench.bench_batched(model, groups, times),
-                     dcn=(DCN_PER_PAIR * calls, 0))
+                     dcn=(DCN_PER_PAIR * calls, 0),
+                     gathers=GATHERS_PER_WINDOW * calls)
     for mode, r in (("b1", b1), ("batched full", full)):
         log(f"  {mode}, compiled: {json.dumps(r['programs'])}")
     calls -= 1  # the chunked mode eager, as before: phase 12 compiles it
@@ -2376,7 +2509,8 @@ def bench_phase(card: str, device) -> Launches:
         f"bench_batched chunk {CHUNK}", 3 * steps * calls,
         lambda: bench.bench_batched(model, groups, times, str(CHUNK),
                                     compiled=False),
-        dcn=(DCN_PER_PAIR * calls, 0))
+        dcn=(DCN_PER_PAIR * calls, 0),
+        gathers=GATHERS_PER_CHUNK * steps * calls)
     xb = torch.from_numpy(groups[0]).to(device)
     tb = torch.tensor(times, device=device)
     half = N_TIMES // 2
@@ -2896,7 +3030,7 @@ def main() -> int:
         "False (fp32 parity)")
 
     t0 = time.perf_counter()
-    logs = cuda_build.build(["siren_fused", "deform_conv"])
+    logs = cuda_build.build(["siren_fused", "deform_conv", "grid_sample"])
     log(f"[2] build: {time.perf_counter() - t0:.1f} s")
     for kname, text in logs.items():
         for line in text.splitlines():
@@ -2909,6 +3043,9 @@ def main() -> int:
     log("[3b] DCN kernels vs plain at the encoder's shapes (trained, +-6 px "
         "and zero offsets, stride 2, dilation 2, shift_bound 2), then timed")
     dcn = dcn_kernel_phase(device, peaks, card)
+    log("[3c] grid_sample kernel vs plain at the x4 720p window's eight "
+        "gathers, bitwise, then timed")
+    gather = gather_phase(device, peaks)
     if "--kernels" in sys.argv[1:]:
         log("[5a] kernel vs plain at the chunked stages' shapes")
         err = max(err, slice_kernel_checks(device))
@@ -2921,13 +3058,15 @@ def main() -> int:
     log(f"    phases 1-3: {time.perf_counter() - t_start:.1f} s")
     t4 = time.perf_counter()
     log("[4] main path: InferencePipeline.render_window, trained weights")
-    launches, dcn_main = main_path(card)
+    launches, dcn_main, gathers_main = main_path(card)
     log(f"    phase 4: {time.perf_counter() - t4:.1f} s")
     dcn_launches = [dcn_main, 0]  # main_path's counted windows
+    gather_launches = [gathers_main]
 
     def add(count):
         dcn_launches[0] += count.dcn[0]
         dcn_launches[1] += count.dcn[1]
+        gather_launches[0] += count.gathers
         return count.total
 
     t5 = time.perf_counter()
@@ -2990,7 +3129,19 @@ def main() -> int:
         ("dcn_forward", "stif_tpu/ops/deform_conv.py:236-273",
          dcn_launches[0]),
         ("dcn_backward", "stif_tpu/ops/deform_conv.py:161",
-         dcn_launches[1]))]}
+         dcn_launches[1]))] + [{
+        "name": "grid_sample",
+        "route": "cuda",
+        "source": "stif_tpu_torch/csrc/grid_sample.cu",
+        "replaces": None,  # the JAX package's gather is XLA, not Pallas
+        "launches": gather_launches[0],
+        "max_abs_err": 0.0 if gather[0] == 0 else None,
+        "ms": gather[1],
+        "plain_ms": gather[2],
+        "bound_ms": gather[3],
+        "bound_by": "bytes",
+        "library_ms": gather[2],  # the plain version is the library call
+    }]}
     from stif_tpu_torch.ops import constants
 
     paths = list(dict.fromkeys(SYNC_CHECKED))

@@ -15,7 +15,7 @@ from stif_tpu_torch.ops.deform_conv import (
     split_offset_mask,
 )
 from stif_tpu_torch.ops.fold import fold3x3
-from stif_tpu_torch.ops.grid_sample import grid_sample
+from stif_tpu_torch.ops.grid_sample import grid_sample, grid_sample_plain
 from stif_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from stif_tpu_torch.ops.resize import imresize, imresize_to, resize_bilinear
 from stif_tpu_torch.ops.siren_fused import (
@@ -37,6 +37,7 @@ __all__ = [
     "deform_conv2d_plain",
     "fold3x3",
     "grid_sample",
+    "grid_sample_plain",
     "imresize",
     "imresize_to",
     "make_coord",

@@ -906,8 +906,9 @@ def test_compiled_replay_makes_no_host_sync(small_model, path):
 
 def test_compiled_launches_count_replays(small_model):
     """A window's capture adds no launch; its eager warm-up and each replay
-    add 3 SIREN and 42 ``dcn_forward`` launches, the program's tally."""
-    from stif_tpu_torch.ops import dcn_forward
+    add 3 SIREN, 42 ``dcn_forward`` and 8 ``grid_sample`` launches, the
+    program's tally."""
+    from stif_tpu_torch.ops import dcn_forward, grid_sample
     from stif_tpu_torch.runtime import InferencePipeline
 
     build, _, _ = small_model
@@ -916,16 +917,19 @@ def test_compiled_launches_count_replays(small_model):
         np.float32)
 
     def counts():
-        return siren_apply_fused.launches, dcn_forward.launches
+        return (siren_apply_fused.launches, dcn_forward.launches,
+                grid_sample.launches)
 
     c0 = counts()
     pipe.render_window(frames, [0.0, 0.5])
     (program,) = pipe.programs.programs.values()
-    assert program.launches == {siren_apply_fused: 3, dcn_forward: 42}
-    assert counts() == (c0[0] + 6, c0[1] + 84)
+    assert program.launches == {siren_apply_fused: 3, dcn_forward: 42,
+                                grid_sample: 8}
+    assert counts() == (c0[0] + 6, c0[1] + 84, c0[2] + 16)
     for k in (1, 2):
         pipe.render_window(frames, [0.0, 0.5])
-        assert counts() == (c0[0] + 6 + 3 * k, c0[1] + 84 + 42 * k)
+        assert counts() == (c0[0] + 6 + 3 * k, c0[1] + 84 + 42 * k,
+                            c0[2] + 16 + 8 * k)
 
 
 def test_compiled_sees_a_weight_reload(small_model):
@@ -1143,7 +1147,7 @@ def test_compiled_train_step_on_the_card(cuda, tmp_path):
     captures nothing, and its ``feed_data`` and replay run under the sync
     debug mode "error"; ``optimize_parameters`` makes one blocking call,
     its logs' fetch."""
-    from stif_tpu_torch.ops import dcn_backward, dcn_forward
+    from stif_tpu_torch.ops import dcn_backward, dcn_forward, grid_sample
 
     eager = _train_model(cuda, tmp_path, False)
     comp = _train_model(cuda, tmp_path, None)
@@ -1151,10 +1155,12 @@ def test_compiled_train_step_on_the_card(cuda, tmp_path):
     for gt, seed in ((32, 0), (16, 1), (32, 2)):
         batch = _train_batch(gt, seed)
         eager.feed_data(batch)
-        before = dcn_forward.launches, dcn_backward.launches
+        before = (dcn_forward.launches, dcn_backward.launches,
+                  grid_sample.launches)
         want = eager.optimize_parameters()
         per_step = (dcn_forward.launches - before[0],
-                    dcn_backward.launches - before[1])
+                    dcn_backward.launches - before[1],
+                    grid_sample.launches - before[2])
         if seed < 2:
             comp.feed_data(batch)
             got = comp.optimize_parameters()
@@ -1169,11 +1175,13 @@ def test_compiled_train_step_on_the_card(cuda, tmp_path):
     assert comp.programs.captures == 2
     assert sorted(st["replays"] for st in comp.programs.stats()) == [1, 2]
     # a replay tallies the launches of the whole step, the backward's (run
-    # from autograd's thread) and the remat's recomputation too
-    assert per_step[0] > per_step[1] > 0
+    # from autograd's thread) and the remat's recomputation too: 8 gathers
+    # of the decode pass and 8 again
+    assert per_step[0] > per_step[1] > 0 and per_step[2] == 16
     for st in comp.programs.stats():
         assert st["launches"] == {"dcn_forward": per_step[0],
-                                  "dcn_backward": per_step[1]}
+                                  "dcn_backward": per_step[1],
+                                  "grid_sample": per_step[2]}
     comp.feed_data(_train_batch(16, 3))
     _, blocking = _blocking_calls(comp.optimize_parameters)
     assert blocking == 1 and comp.programs.captures == 2
@@ -1370,3 +1378,177 @@ def test_marks_change_nothing_a_replayed_window_computes(small_model,
     assert st["stages"] == {} and st["replays"] == 2
     assert marked["graph_nodes"] - st["graph_nodes"] == 2 * len(
         marked["stages"])
+
+
+# ------------------------------------------------------------ grid_sample
+
+def _gs_want(x, grid, mode, padding_mode, align_corners):
+    """``F.grid_sample`` + ``.contiguous()`` on ATen's own kernel: cuDNN,
+    which ``F.grid_sample`` takes for bilinear, zero padding and
+    ``align_corners=True``, is turned off."""
+    from stif_tpu_torch.ops import grid_sample_plain
+
+    with torch.backends.cudnn.flags(enabled=False):
+        return grid_sample_plain(x, grid, mode, padding_mode, align_corners)
+
+
+def _gs_grid(rng, n, q, h, w, align_corners, device):
+    """(n, q, 2) points in [-1.3, 1.3], a third of them at exact half-pixel
+    source positions in x and another third in y (``h - 1`` or ``w - 1``
+    a power of two under ``align_corners``, else ``h`` or ``w``)."""
+    g = rng.uniform(-1.3, 1.3, (n, q, 2))
+    for axis, size, sl in ((0, w, slice(0, None, 3)),
+                           (1, h, slice(1, None, 3))):
+        k = rng.integers(-1, size, g[:, sl, axis].shape) + 0.5
+        g[:, sl, axis] = ((2 * k / (size - 1) - 1) if align_corners
+                          else ((2 * k + 1) / size - 1))
+    return torch.tensor(g, dtype=torch.float32, device=device)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("c", [3, 64, 198, 200])
+@pytest.mark.parametrize("mode", ["nearest", "bilinear"])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_grid_sample_kernel_matches_aten(cuda, rng, c, mode, padding_mode,
+                                         align_corners):
+    """The kernel against ``F.grid_sample`` + ``.contiguous()`` bitwise, in
+    the decoder's layouts: B 1 and nt x B (3 x 2) with a batch broadcast
+    source (stride 0), a channel slice (pixel stride 2c, offset c), flat
+    and 2-D grids, ragged query counts; points outside [-1, 1] and on
+    exact half-pixel positions."""
+    from stif_tpu_torch.ops import grid_sample
+
+    h, w = (9, 17) if align_corners else (8, 16)
+    base = torch.tensor(rng.standard_normal((2, h, w, 2 * c)),
+                        dtype=torch.float32, device=cuda)
+    sources = {
+        "contiguous": base[:1, ..., :c].contiguous(),
+        "broadcast": base[:2, ..., :c].contiguous().expand(3, 2, h, w, c)
+        .reshape(6, h, w, c),
+        "batch_stride_0": base[:1, ..., :c].contiguous().expand(6, h, w, c),
+        "channel_slice": base[..., c:],
+    }
+    for name, x in sources.items():
+        n = x.shape[0]
+        for shape in ((n, 1000, 2), (n, 37, 29, 2)):
+            q = int(np.prod(shape[1:-1]))
+            grid = _gs_grid(rng, n, q, h, w, align_corners, cuda)
+            grid = grid.reshape(shape)
+            before = grid_sample.launches
+            got = grid_sample(x, grid, mode=mode, padding_mode=padding_mode,
+                              align_corners=align_corners)
+            assert grid_sample.launches == before + 1
+            want = _gs_want(x, grid, mode, padding_mode, align_corners)
+            assert got.shape == want.shape and got.is_contiguous()
+            mismatch = (_bits(got) != _bits(want)).sum().item()
+            assert mismatch == 0, (name, shape, mismatch,
+                                   (got - want).abs().max().item())
+
+
+def test_grid_sample_kernel_reads_strided_grids(cuda, rng):
+    """A grid view with a negative stride (``flip``) and one of stride 0
+    over the batch, as the decoder hands them over, bitwise."""
+    from stif_tpu_torch.ops import grid_sample
+
+    x = torch.tensor(rng.standard_normal((3, 12, 20, 198)),
+                     dtype=torch.float32, device=cuda)
+    yx = _gs_grid(rng, 1, 4097, 12, 20, False, cuda)
+    for grid in (yx.flip(-1).expand(3, 4097, 2), yx.expand(3, 4097, 2)):
+        got = grid_sample(x, grid)
+        assert torch.equal(_bits(got), _bits(_gs_want(x, grid, "bilinear",
+                                                       "zeros", False)))
+
+
+def test_grid_sample_decode_gradients_are_the_plain_ops(small_model,
+                                                         monkeypatch):
+    """A decode under grad (plain SIREN) through the kernel's autograd
+    route against one through ``F.grid_sample``'s: the gradients of the
+    sources (features, frames) and, through the warp grids, of
+    ``flow_imnet``'s weights. ATen's backward scatters the source's
+    gradient by atomics, in any order: rtol 1e-5 of each gradient's
+    largest."""
+    import stif_tpu_torch.models.luna_tokis as luna_tokis
+    from stif_tpu_torch.ops import grid_sample, grid_sample_plain
+    from stif_tpu_torch.ops.precision import round_to
+
+    build, x, times = small_model
+    model = build(fused=False)
+    with torch.no_grad():
+        feat0 = model.gen_feat(x)
+
+    def plain(v, g, mode="bilinear", padding_mode="zeros",
+              align_corners=False, source_dtype=None):
+        if mode == "bilinear":
+            v = round_to(v, source_dtype)
+        return grid_sample_plain(v, g, mode, padding_mode, align_corners)
+
+    def grads():
+        model.zero_grad()
+        feat = feat0.clone().requires_grad_(True)
+        inp = x.clone().requires_grad_(True)
+        out = model.decode(feat, inp, times)
+        w = torch.linspace(-1, 1, out.numel(), device=out.device)
+        (out.reshape(-1) * w).sum().backward()
+        return [feat.grad, inp.grad] + [
+            p.grad for p in model.flow_imnet.parameters()]
+
+    # 8 gathers in the forward, 8 again where the backward recomputes the
+    # decode pass (remat)
+    before = grid_sample.launches
+    got = grads()
+    assert grid_sample.launches == before + 16
+    with monkeypatch.context() as m:
+        m.setattr(luna_tokis, "grid_sample", plain)
+        want = grads()
+    assert grid_sample.launches == before + 16
+    for a, b in zip(got, want):
+        scale = b.abs().max().item()
+        assert scale > 0
+        assert (a - b).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("mode", ["nearest", "bilinear"])
+def test_grid_sample_grid_gradient_is_atens(cuda, rng, mode):
+    """The op under autograd: the grid's gradient is ATen's bitwise (one
+    thread a point); the source's, scattered by atomics, within 1e-6 of
+    its largest."""
+    from stif_tpu_torch.ops import grid_sample, grid_sample_plain
+
+    x0 = torch.tensor(rng.standard_normal((2, 10, 14, 64)),
+                      dtype=torch.float32, device=cuda)
+    g0 = _gs_grid(rng, 2, 3000, 10, 14, False, cuda)
+    w = torch.tensor(rng.standard_normal((2, 3000, 64)), dtype=torch.float32,
+                     device=cuda)
+    res = []
+    for route in (grid_sample, grid_sample_plain):
+        x = x0.clone().requires_grad_(True)
+        g = g0.clone().requires_grad_(True)
+        (route(x, g, mode) * w).sum().backward()
+        res.append((x.grad, g.grad))
+    (gx, gg), (wx, wg) = res
+    assert torch.equal(_bits(gg), _bits(wg))
+    assert (gx - wx).abs().max().item() <= 1e-6 * wx.abs().max().item()
+
+
+def test_grid_sample_kernel_refuses_bad_inputs(cuda):
+    """A dtype other than float32 and a non-unit channel stride raise; so
+    does a grid on another device; nothing falls back."""
+    from stif_tpu_torch.ops import grid_sample
+
+    x = torch.rand(1, 6, 8, 16, device=cuda)
+    g = torch.rand(1, 50, 2, device=cuda) * 2 - 1
+    before = grid_sample.launches
+    for bad in (x.double(), x.half(), x.to(torch.bfloat16)):
+        with pytest.raises(ValueError, match="float32"):
+            grid_sample(bad, g)
+    with pytest.raises(ValueError, match="channel stride"):
+        grid_sample(x[..., ::2], g)
+    with pytest.raises(ValueError, match="channel stride"):
+        grid_sample(x.permute(0, 3, 1, 2).permute(0, 2, 1, 3), g)
+    with pytest.raises(ValueError, match="grid on"):
+        grid_sample(x, g.cpu())
+    assert grid_sample.launches == before

@@ -2,8 +2,11 @@
 resamplers, pixel shuffle and the runtime's padding / window helpers.
 Bar: atol 1e-5 (fp32; both sides compute the same formulas)."""
 
+import importlib
+
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -27,6 +30,8 @@ from stif_tpu_torch.ops import (
 from stif_tpu_torch.ops.fold import fold3x3
 from stif_tpu_torch.runtime import pad_to_multiple, window_plan
 from torch_parity import t
+
+gs = importlib.import_module("stif_tpu_torch.ops.grid_sample")
 
 ATOL = 1e-5
 
@@ -83,6 +88,88 @@ def test_grid_sample_rejects_unknown_mode(rng):
         grid_sample(x, g, mode="bicubic")
     with pytest.raises(ValueError):
         grid_sample(x, g, padding_mode="reflection")
+
+
+@pytest.mark.parametrize("mode", ["nearest", "bilinear"])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("flat", [False, True])
+def test_grid_sample_on_cpu_is_the_plain_version(rng, monkeypatch, mode,
+                                                 padding_mode, align_corners,
+                                                 flat):
+    """On CPU tensors the op never builds or loads the kernel's library,
+    counts no launch and returns ``F.grid_sample``'s values made
+    channels-last, bitwise; also for a channel slice and a batch
+    broadcast of the source."""
+    def no_build(name):
+        raise AssertionError(f"the CPU path loaded {name}")
+
+    monkeypatch.setattr(gs.cuda_build, "load", no_build)
+    base = t(rng.standard_normal((1, 7, 9, 8)).astype(np.float32))
+    grid = t(rng.uniform(-1.2, 1.2, (3, 30, 2)).astype(np.float32))
+    grid = grid if flat else grid.reshape(3, 5, 6, 2)
+    launches = grid_sample.launches
+    for x in (base.expand(3, 7, 9, 8), base.expand(3, 7, 9, 8)[..., 2:5]):
+        got = grid_sample(x, grid, mode=mode, padding_mode=padding_mode,
+                          align_corners=align_corners)
+        g = grid[:, :, None] if flat else grid
+        want = torch.nn.functional.grid_sample(
+            x.permute(0, 3, 1, 2), g, mode=mode, padding_mode=padding_mode,
+            align_corners=align_corners).permute(0, 2, 3, 1)
+        want = want[:, :, 0] if flat else want
+        assert got.is_contiguous() and got.shape == want.shape
+        assert torch.equal(got, want)
+    assert grid_sample.launches == launches
+
+
+@pytest.mark.parametrize("c,strides,pointers,plan", [
+    (200, (0, 64000, 200), (0, 512), (4, 32)),   # stage A, a batch broadcast
+    (198, (63360, 6336, 198), (0, 512), (2, 32)),  # stages B and C
+    (64, (98304, 3072, 64), (0, 512), (4, 8)),   # the HR feature field
+    (3, (0, 6, 192), (0, 512), (1, 4)),          # the skip source's slices
+    (3, (0, 6, 192), (12, 512), (1, 4)),
+    (192, (0, 63360, 198), (0, 512), (2, 32)),   # a 198-wide source's slice
+    (192, (0, 64000, 200), (8, 512), (2, 32)),   # an 8-byte aligned slice
+    (6, (0, 48, 6), (0, 512), (2, 4)),
+    (16, (0, 320, 16), (0, 512), (4, 4)),
+])
+def test_grid_sample_launch_plan(c, strides, pointers, plan):
+    """The widest vector that the channels, strides and addresses allow,
+    then the fewest lanes (a power of two from 4 to 32) that cover a row in
+    at most two steps."""
+    assert gs.launch_plan(c, strides, pointers) == plan
+
+
+@pytest.mark.parametrize("mode,padding_mode,align_corners", [
+    ("bilinear", "zeros", False), ("bilinear", "border", True),
+    ("nearest", "zeros", False)])
+@pytest.mark.parametrize("flat", [False, True])
+@pytest.mark.parametrize("wants", [(True, True), (True, False),
+                                   (False, True)])
+def test_grid_sample_backward_is_atens(rng, monkeypatch, mode, padding_mode,
+                                       align_corners, flat, wants):
+    """The card's autograd route on the CPU, its forward swapped for the
+    plain one: ATen's ``grid_sampler_2d_backward`` gives the gradients that
+    ``F.grid_sample``'s autograd gives, bitwise, for the operands that
+    require them."""
+    monkeypatch.setattr(gs, "_gather", gs.grid_sample_plain)
+    x0 = t(rng.standard_normal((2, 6, 7, 5)).astype(np.float32))
+    g0 = t(rng.uniform(-1.2, 1.2, (2, 24, 2)).astype(np.float32))
+    g0 = g0 if flat else g0.reshape(2, 4, 6, 2)
+    w = t(rng.standard_normal(tuple(g0.shape[:-1]) + (5,)).astype(
+        np.float32))
+    grads = []
+    for route in (gs._GatherFn.apply, gs.grid_sample_plain):
+        x = x0.clone().requires_grad_(wants[0])
+        g = g0.clone().requires_grad_(wants[1])
+        out = route(x, g, mode, padding_mode, align_corners)
+        (out * w).sum().backward()
+        grads.append((x.grad, g.grad))
+    for got, want, wanted in zip(grads[0], grads[1], wants):
+        assert (got is None) == (not wanted) == (want is None)
+        if wanted:
+            assert got.shape == want.shape
+            assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("hw", [(6, 9), (12, 4)])
