@@ -22,6 +22,10 @@ package's ``use_pallas`` and defaults to True as in the port's ``LunaTokis``:
 the SIREN nets run the fused kernel (forward only: a training loop builds
 its model with ``fused=False``), and get their fields as a list of views
 that the kernel reads in place, never concatenated here.
+
+``LunaTokisTrain.decode`` marks the flagship's stages (``utils/trace.py``):
+``decode`` with ``decode.prep``, ``decode.ab`` (the stage-A gather, stages A
+and B), ``decode.cd`` (stages C and D) and ``decode.fold`` (the overlap-add).
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from stif_tpu_torch.ops.grid_sample import grid_sample
 from stif_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from stif_tpu_torch.ops.resize import resize_bilinear
 from stif_tpu_torch.ops.warp import warp_grid
+from stif_tpu_torch.utils.trace import mark
 
 _EPS = 1e-6
 
@@ -162,30 +167,39 @@ class LunaTokisTrain(nn.Module):
         return self.encoder(x)
 
     def decode(self, feat_t, inp, times, out_size=None) -> torch.Tensor:
-        feat, inp_cat, HH, WW = _prep(feat_t, inp, out_size)
-        q = Queries(feat, inp_cat, times, HH, WW)
-        nt, B, Q = q.nt, q.B, q.Q
-        base = q.tile_t(q.base)
-        # stage A (no time code)
-        hrfeat = self.feat_imnet([base]).reshape(nt * B, HH, WW, -1)
-        # stage B: the HR field at its own cell centres, nearest, then the
-        # nearest LR samples, the relative coordinates and the time
-        q_feat_b = grid_sample(hrfeat, q.tile_t(q.cxy).reshape(nt * B, Q, 2),
-                               mode="nearest").reshape(nt, B, Q, -1)
-        flow_q = self.flow_imnet([q_feat_b, base, q.pe])
-        del q_feat_b
-        g1, g2 = q.warp_grids(flow_q, HH, WW)
-        # stage C: the equal-resolution LR sources in one gather per grid
-        lr_c = q.tile_b(torch.cat([feat, inp_cat], -1))
-        c1 = grid_sample(lr_c, g1)
-        c2 = grid_sample(lr_c, g2)
-        q_feat1 = grid_sample(hrfeat, g1)
-        q_feat2 = grid_sample(hrfeat, g2)
-        # stage D (no time code): [q_feat1, q_feat3, q_inp1, q_feat2,
-        # q_feat4, q_inp2] -> 27 -> fold
-        patches = self.encode_imnet([q_feat1, c1, q_feat2, c2])
-        rgb = fold3x3(patches.reshape(nt * B, HH, WW, 27))
-        return rgb.reshape(nt, B, HH, WW, 3)
+        dev = feat_t.device
+        with mark("decode", dev):
+            with mark("decode.prep", dev):
+                feat, inp_cat, HH, WW = _prep(feat_t, inp, out_size)
+            with mark("decode.ab", dev):
+                q = Queries(feat, inp_cat, times, HH, WW)
+                nt, B, Q = q.nt, q.B, q.Q
+                base = q.tile_t(q.base)
+                # stage A (no time code)
+                hrfeat = self.feat_imnet([base]).reshape(nt * B, HH, WW, -1)
+                # stage B: the HR field at its own cell centres, nearest,
+                # then the nearest LR samples, the relative coordinates and
+                # the time
+                q_feat_b = grid_sample(
+                    hrfeat, q.tile_t(q.cxy).reshape(nt * B, Q, 2),
+                    mode="nearest").reshape(nt, B, Q, -1)
+                flow_q = self.flow_imnet([q_feat_b, base, q.pe])
+                del q_feat_b
+            with mark("decode.cd", dev):
+                g1, g2 = q.warp_grids(flow_q, HH, WW)
+                # stage C: the equal-resolution LR sources in one gather per
+                # grid
+                lr_c = q.tile_b(torch.cat([feat, inp_cat], -1))
+                c1 = grid_sample(lr_c, g1)
+                c2 = grid_sample(lr_c, g2)
+                q_feat1 = grid_sample(hrfeat, g1)
+                q_feat2 = grid_sample(hrfeat, g2)
+                # stage D (no time code): [q_feat1, q_feat3, q_inp1, q_feat2,
+                # q_feat4, q_inp2] -> 27
+                patches = self.encode_imnet([q_feat1, c1, q_feat2, c2])
+            with mark("decode.fold", dev):
+                rgb = fold3x3(patches.reshape(nt * B, HH, WW, 27))
+            return rgb.reshape(nt, B, HH, WW, 3)
 
     def forward(self, x, times, out_size=None) -> torch.Tensor:
         """(B, N, H, W, 3), times (nt,) or (B, nt) -> (nt, B, HH, WW, 3)."""

@@ -26,6 +26,7 @@ compute) and ``fetch.copy`` (into the host array returned).
 from __future__ import annotations
 
 import contextlib
+import inspect
 import math
 from typing import Callable, ContextManager, Iterable, Iterator, List, \
     Optional, Sequence, Tuple
@@ -95,11 +96,16 @@ def window_plan(skip: bool, n_out: int, len_in: int) -> List[List[List[int]]]:
 
 
 class InferencePipeline:
-    """Renders LR frame windows with a ``LunaTokis`` on one device (CUDA
-    unless ``device`` says otherwise). ``render_window`` passes ``test=`` and
-    ``local_ensemble=`` to the model, so it serves ``LunaTokis`` only, as in
-    the JAX package; ``render_window_tmnet`` serves a ``TMNet``, and the
-    other variants are called directly.
+    """Renders LR frame windows on one device (CUDA unless ``device`` says
+    otherwise). ``render_window``, ``stage`` / ``stream`` and
+    ``render_sequence`` serve a ``LunaTokis``, which takes ``test=`` and
+    ``local_ensemble=``, and a model whose forward takes ``(x, times,
+    out_size)`` only, such as ``LunaTokisTrain`` (``LIIF_train``): the
+    pipeline reads the forward's parameters once, here, and asking such a
+    model for ``test_mode`` or ``local_ensemble`` raises ``ValueError``.
+    ``render_pairs`` serves a ``LunaTokis`` (its chunked decode passes) and
+    ``render_window_tmnet`` a ``TMNet``; the other variants are called
+    directly.
 
     ``compiled``: None replays one captured CUDA graph per bucket on a CUDA
     device and runs eagerly on the CPU; False runs eagerly; True asks for
@@ -121,11 +127,23 @@ class InferencePipeline:
         self.bucket = bucket
         # test mode: the decoder reads a bilinear x4 upsample of the inputs
         self.test_mode = test_mode
-        # four area-weighted shifted decode passes: a quality / compute trade
-        self.local_ensemble = local_ensemble
         # x8 geometric self-ensemble (EDSR dihedral average): not a
         # reference mode; an optional quality / compute trade
         self.self_ensemble = self_ensemble
+        # the decode modes the window's forward is called with (the local
+        # ensemble: four area-weighted shifted decode passes, a quality /
+        # compute trade); none for a forward that does not take them
+        modes = {"test": test_mode, "local_ensemble": local_ensemble}
+        takes = inspect.signature(self.model.forward).parameters
+        if all(k in takes for k in modes):
+            self._modes = modes
+        elif test_mode or local_ensemble:
+            raise ValueError(
+                f"{type(self.model).__name__}'s forward takes no test= or "
+                "local_ensemble=: build the pipeline without test_mode and "
+                "local_ensemble")
+        else:
+            self._modes = {}
         # render_pairs' decoder, made anew only when the chunk size changes
         self._chunked = None
 
@@ -207,8 +225,7 @@ class InferencePipeline:
         with torch.inference_mode(), self._device_scope():
             out = self._run("window", self.model, (xt, t), tally,
                             out_size=(hp * self.scale, wp * self.scale),
-                            test=self.test_mode,
-                            local_ensemble=self.local_ensemble)
+                            **self._modes)
             out = out[:, 0].clone()
             if not cuda:
                 return out, None, hw, tally

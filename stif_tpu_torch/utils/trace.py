@@ -57,7 +57,7 @@ from stif_tpu_torch.ops import cuda_build
 # every stage has a slot in a table; a child's name starts with its parent's
 STAGES = ("encode", "encode.front", "encode.pcd", "encode.convlstm",
           "encode.trunk", "head",
-          "decode", "decode.prep", "decode.ab", "decode.cd",
+          "decode", "decode.prep", "decode.ab", "decode.cd", "decode.fold",
           "train.forward", "train.backward", "train.update", "train.ema")
 SLOT = {s: i for i, s in enumerate(STAGES)}
 # the train step's phases, which open with grad enabled too

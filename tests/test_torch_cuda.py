@@ -1552,3 +1552,67 @@ def test_grid_sample_kernel_refuses_bad_inputs(cuda):
     with pytest.raises(ValueError, match="grid on"):
         grid_sample(x, g.cpu())
     assert grid_sample.launches == before
+
+
+# ------------------------------------- STIF's arbitrary-scale architecture
+
+def _liif_train(cuda):
+    """``LIIF_train`` at nf 16, its DCN offset convs drawn (they start at
+    zero), on the card."""
+    from stif_tpu_torch.models.factory import define_g
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    model = define_g({"network_G": {"which_model_G": "LIIF_train", "nf": 16,
+                                    "groups": 4, "front_RBs": 1,
+                                    "back_RBs": 1}})
+    for p in model.parameters():
+        if p.abs().max() == 0:
+            torch.nn.init.uniform_(p, -0.05, 0.05)
+    return model.to(cuda).eval()
+
+
+def test_compiled_liif_train_equals_eager_on_the_card(cuda):
+    """``InferencePipeline`` serving ``LunaTokisTrain``: the replayed window
+    equals the eager one bit for bit, first call and replay, one capture;
+    its graph holds 3 SIREN launches, each replay adds them, and a profiled
+    replay runs ``siren_fused_kernel`` 3 times."""
+    from stif_tpu_torch.runtime import InferencePipeline
+
+    model = _liif_train(cuda)
+    comp = InferencePipeline(model, bucket=4)
+    eager = InferencePipeline(model, bucket=4, compiled=False)
+    frames = np.random.default_rng(11).random((2, 8, 12, 3)).astype(
+        np.float32)
+    times = [0.0, 0.4, 1.0]
+    want = eager.render_window(frames, times)
+    got = [comp.render_window(frames, times) for _ in range(2)]
+    assert want.shape == (3, 32, 48, 3)
+    assert max(np.abs(g - want).max() for g in got) == 0
+    (program,) = comp.programs.programs.values()
+    assert comp.programs.captures == 1
+    assert program.launches[siren_apply_fused] == 3
+    before = siren_apply_fused.launches
+    events = _profiled_replay(comp, frames, times)
+    assert siren_apply_fused.launches == before + 3
+    assert sum(1 for e in events if e.get("cat") == "kernel"
+               and "siren_fused_kernel" in e.get("name", "")) == 3
+
+
+@pytest.mark.parametrize("name", ["train_feat", "train_flow",
+                                  "train_encode"])
+def test_kernel_matches_plain_at_a_720p_window(cuda, rng, name):
+    """Each ``LIIF_train`` net at the rows of a x4 720p window at 8 times
+    (LR 192x320: 8 x 983,040), its fields laid out as the model hands them
+    over, against the plain SIREN time by time: 1e-4."""
+    splits, widths = ZOO_NETS[name]
+    ws, bs = _net(rng, splits, widths, cuda)
+    torch.manual_seed(0)
+    xs = _zoo_fields(name, 8, 768 * 1280, cuda)
+    got = siren_apply_fused(xs, ws, bs)
+    torch.cuda.synchronize()
+    assert got.shape == (8, 768 * 1280, widths[-1])
+    worst = max((got[t] - siren_apply_fused_plain([x[t] for x in xs], ws,
+                                                  bs)).abs().max().item()
+                for t in range(8))
+    assert worst <= 1e-4

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from stif_tpu_torch.models import LunaTokis
+from stif_tpu_torch.models.factory import define_g
 from stif_tpu_torch.models.tmnet import TMNet
 from stif_tpu_torch.runtime import InferencePipeline, ProgramCache
 from stif_tpu_torch.train.video_sr_model import VideoSRModel
@@ -131,6 +132,35 @@ def test_parents_hold_their_children(luna, tmnet):
         assert set(stages) == set(
             ["encode", "decode"] + ENCODE + DECODE if pipe is not tm
             else ["encode", "head"] + ENCODE)
+
+
+def test_liif_train_marks_each_stage_once_per_window(monkeypatch):
+    """``LunaTokisTrain`` (``LIIF_train``) marks the flagship's stages and
+    ``decode.fold``: eagerly they nest in the forward's order, and through
+    the pipeline's program each stage opens and closes once per window,
+    every parent holding its children's time."""
+    torch.manual_seed(2)
+    model = define_g({"network_G": {"which_model_G": "LIIF_train", "nf": 8,
+                                    "groups": 2, "front_RBs": 1,
+                                    "back_RBs": 1}}).eval()
+    seen = _opened(monkeypatch)
+    with torch.inference_mode():
+        model(torch.from_numpy(_frames()[None]), torch.tensor(TIMES))
+    assert [(s, [c for c, _ in kids]) for s, kids in _nest(seen)] == [
+        ("encode", ENCODE), ("decode", DECODE + ["decode.fold"])]
+    monkeypatch.undo()
+    pipe = InferencePipeline(model, device="cpu", compiled=double_cache(),
+                             bucket=4)
+    list(pipe.stream(pipe.stage(_frames(seed=s), TIMES) for s in range(3)))
+    (st,) = pipe.programs.stats()
+    stages = st["stages"]
+    assert set(stages) == set(["encode", "decode", "decode.fold"] + ENCODE
+                              + DECODE)
+    assert {row["n"] for row in stages.values()} == {st["replays"]} == {3}
+    for parent in ("encode", "decode"):
+        kids = [k for k in stages if k.startswith(parent + ".")]
+        assert stages[parent]["device_ms"] >= sum(
+            stages[k]["device_ms"] for k in kids) > 0
 
 
 def test_tables_count_replays_only(luna):
