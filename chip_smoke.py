@@ -232,6 +232,9 @@ LR_HW = (96, 160)
 N_TIMES = 8
 SCALE = 4
 KERNEL_BAR = 1e-4   # kernel vs plain, one net
+# SIREN layers a flagship window runs on the tensor cores: every layer of
+# feat_imnet (4), flow_imnet (4) and encode_imnet (5)
+FLAGSHIP_TC_LAYERS = 13
 SINE_BAR = 5e-7     # the kernel's sine vs a float64 sine (sinf: 2 ulp)
 WINDOW_BAR = 1e-3   # whole window, kernel vs plain SIREN / GPU vs CPU
 CHUNK = 65536       # ChunkedDecoder's default chunk of queries
@@ -375,7 +378,13 @@ def sine_check(device) -> None:
     """The kernel's own sine against a float64 sine of the same fp32
     argument, through a 1 -> 4 -> 4 net with an identity last layer: small
     arguments, arguments up to the end of its fast range (1e5), and beyond
-    it (1e8), where it hands over to ``sinf``."""
+    it (1e8), where it hands over to ``sinf``. The argument is the kernel's
+    own first-layer product (a one-layer launch of the same weight and
+    inputs) times omega0; that product's error against the exact product
+    (3xTF32: at most 2^-20 of it) and in ulps of the fp32 product is
+    logged."""
+    import math
+
     import torch
     from stif_tpu_torch.ops import siren_apply_fused
 
@@ -384,11 +393,21 @@ def sine_check(device) -> None:
     for scale in (1e2, 1e5, 1e8):
         x = (torch.rand(1 << 20, 1, device=device) * 2 - 1) * scale
         got = siren_apply_fused([x], ws, bs)
+        lin = siren_apply_fused([x], ws[:1], bs[:1])
         torch.cuda.synchronize()
-        arg = 30.0 * (x * w0)  # the kernel's argument, rounded as it rounds
+        exact = x.double() * w0.double()
+        rel = ((lin.double() - exact).abs()
+               / exact.abs().clamp_min(1e-300)).max().item()
+        fp32 = x * w0
+        ulp = torch.nextafter(fp32.abs(), torch.tensor(math.inf, device=device))
+        ulps = ((lin - fp32).abs() / (ulp - fp32.abs())).max().item()
+        arg = 30.0 * lin  # the kernel's argument, rounded as it rounds
         err = (got.double() - torch.sin(arg.double())).abs().max().item()
         log(f"  sine, |argument| <= {scale:.0e}: max|kernel - float64 sin| "
-            f"= {err:.3e}")
+            f"= {err:.3e}; the first layer's product {rel:.3e} of the exact "
+            f"one, {ulps:.1f} ulp of the fp32 product at most")
+        if not rel <= 2.0 ** -20:
+            raise AssertionError(f"first-layer product off by {rel} > 2^-20")
         if not err <= SINE_BAR:
             raise AssertionError(f"kernel sine off by {err} > {SINE_BAR}")
 
@@ -438,8 +457,8 @@ def kernel_phase(device, peaks):
         plan = launch_plan(splits, widths)
         log(f"  {name} plan: {plan.tile_rows} rows x {plan.threads} threads, "
             f"tile widths {plan.pitch}, K-chunks {plan.kc}, "
-            f"{len(plan.chunks)} first-layer chunks, {plan.smem_bytes} B "
-            f"shared, {blocks_per_sm(plan)} blocks per SM")
+            f"{plan.tensor_core_layers} tensor-core layers, "
+            f"{plan.smem_bytes} B shared, {blocks_per_sm(plan)} blocks per SM")
         for q in (65536, 65537):
             xs = [torch.tensor(rng.uniform(-1, 1, (q, c)),
                                dtype=torch.float32, device=device)
@@ -914,6 +933,7 @@ def main_path(card: str):
     times = [i / N_TIMES for i in range(N_TIMES)]
 
     siren_apply_fused.launches = grid_sample.launches = 0
+    siren_apply_fused.tensor_core_layers = 0
     dcn_forward.launches = dcn_backward.launches = 0
     torch.cuda.reset_peak_memory_stats()
     out = pipe.render_window(frames, times)  # warm-up
@@ -923,6 +943,7 @@ def main_path(card: str):
         pipe.render_window(frames, times)
         window_s.append(time.perf_counter() - t0)
     launches = siren_apply_fused.launches
+    tc_layers = siren_apply_fused.tensor_core_layers
     dcn = dcn_counts()
     gathers = grid_sample.launches
     peak = torch.cuda.max_memory_allocated()
@@ -939,6 +960,10 @@ def main_path(card: str):
     if launches != 3 * n_windows:
         raise AssertionError(f"{launches} SIREN launches in {n_windows} "
                              "windows, expected 3 per window")
+    if tc_layers != FLAGSHIP_TC_LAYERS * n_windows:
+        raise AssertionError(f"{tc_layers} SIREN layers on the tensor cores "
+                             f"in {n_windows} windows, expected "
+                             f"{FLAGSHIP_TC_LAYERS} per window")
     if dcn != (DCN_PER_PAIR * n_windows, 0):
         raise AssertionError(f"DCN launches (forward, backward) {dcn} in "
                              f"{n_windows} windows, expected {DCN_PER_PAIR} "
@@ -950,7 +975,8 @@ def main_path(card: str):
     (stats,) = pipe.programs.stats()
     log(f"  window {out.shape}, finite, SIREN launches {launches} in "
         f"{n_windows} windows (4 replays of the captured graph and the "
-        f"capture's eager warm-up; 3 per window), dcn_forward launches "
+        f"capture's eager warm-up; 3 per window, {tc_layers} layers on the "
+        f"tensor cores), dcn_forward launches "
         f"{dcn[0]} ({DCN_PER_PAIR} per window), no dcn_backward, grid_sample "
         f"launches {gathers} ({GATHERS_PER_WINDOW} per window); the "
         f"capture: warm-up {stats['warmup_ms']:.1f} ms, capture "
@@ -1109,6 +1135,9 @@ def dcn_counts():
 class Launches:
     """Counts kernel launches path by path: ``run`` sets every wrapper's
     count to 0, drives one path, checks the counts it read and adds them up.
+    ``layers`` is the SIREN layers the path must run on the tensor cores
+    (``siren_apply_fused.tensor_core_layers``); None: the flagship's, 13
+    for each 3 launches.
     ``dcn`` is the (forward, backward) DCN launches the path must make;
     ``"some"`` asks for at least one forward launch, None for none at
     all. ``gathers`` is the ``grid_sample`` launches the path must make,
@@ -1119,17 +1148,29 @@ class Launches:
         self.dcn = [0, 0]
         self.gathers = 0
 
-    def run(self, what: str, expect: int, fn, dcn="some", gathers=None):
+    def run(self, what: str, expect: int, fn, dcn="some", gathers=None,
+            layers=None):
         from stif_tpu_torch.ops import (dcn_backward, dcn_forward,
                                         grid_sample, siren_apply_fused)
 
         siren_apply_fused.launches = grid_sample.launches = 0
+        siren_apply_fused.tensor_core_layers = 0
         dcn_forward.launches = dcn_backward.launches = 0
         out = fn()
         n = siren_apply_fused.launches
         if n != expect:
             raise AssertionError(f"{what}: {n} SIREN launches, expected "
                                  f"{expect}")
+        if layers is None:
+            if expect % 3:
+                raise AssertionError(f"{what}: {expect} SIREN launches are "
+                                     "not whole flagship windows; give the "
+                                     "tensor-core layers")
+            layers = expect // 3 * FLAGSHIP_TC_LAYERS
+        tc = siren_apply_fused.tensor_core_layers
+        if tc != layers:
+            raise AssertionError(f"{what}: {tc} SIREN layers on the tensor "
+                                 f"cores, expected {layers}")
         got = dcn_counts()
         if (got[0] == 0 if dcn == "some" else
                 got != ((0, 0) if dcn is None else tuple(dcn))):
@@ -1473,8 +1514,8 @@ def zoo_kernel_phase(device, peaks) -> float:
         ws, bs = siren_net(rng, widths, device)
         plan = launch_plan(splits, widths)
         log(f"  {name} plan: tile widths {plan.pitch}, K-chunks {plan.kc}, "
-            f"{len(plan.chunks)} first-layer chunks, {plan.smem_bytes} B "
-            f"shared, {blocks_per_sm(plan)} blocks per SM")
+            f"{plan.tensor_core_layers} tensor-core layers, "
+            f"{plan.smem_bytes} B shared, {blocks_per_sm(plan)} blocks per SM")
         for nt, q in ((1, 1), (3, 63), (3, 65), (2, 4097)):
             xs = zoo_fields(name, nt, q, device)
             worst = max(worst, check(f"{name} nt={nt}", xs, ws, bs))
@@ -1551,19 +1592,21 @@ def zoo_phase(card: str, device) -> int:
 
     log("[7b] LunaTokisTrain / S / NoFlow at full width, LR "
         f"{LR_HW[0]}x{LR_HW[1]} pair, {N_TIMES} times, x{SCALE}")
-    for seed, (cls, expect) in enumerate(((LunaTokisTrain, 3),
-                                          (LunaTokisS, 2),
-                                          (LunaTokisNoFlow, 1))):
+    # tensor-core layers per window: Train 5 + 5 + 6, S 4 + 5, NoFlow 6
+    for seed, (cls, expect, layers) in enumerate(((LunaTokisTrain, 3, 16),
+                                                  (LunaTokisS, 2, 9),
+                                                  (LunaTokisNoFlow, 1, 6))):
         name = cls.__name__
         model, cpu_model = on_card_and_cpu(
             seeded(lambda: cls(**ZOO_CFG), 70 + seed), device)
         with torch.inference_mode():
             out = count.run(name, expect,
-                            lambda: model(x, t).cpu().numpy())
+                            lambda: model(x, t).cpu().numpy(), layers=layers)
             finite(name, out, (N_TIMES, 1, HH, WW, 3))
             runs, peak = count.run(
                 f"{name}, timed", TIMED_RUNS * expect,
-                lambda: timed(lambda: model(x, t).cpu().numpy()))
+                lambda: timed(lambda: model(x, t).cpu().numpy()),
+                layers=TIMED_RUNS * layers)
             set_fused(model, False)
             t0 = time.perf_counter()
             plain = count.run(f"{name}, plain SIREN", 0,
@@ -1573,7 +1616,8 @@ def zoo_phase(card: str, device) -> int:
             with no_host_sync(f"{name} window"):
                 model(x, t)
             gpu = count.run(f"{name}, 16x16", expect,
-                            lambda: model(xs.to(device), t[:2]).cpu().numpy())
+                            lambda: model(xs.to(device), t[:2]).cpu().numpy(),
+                            layers=layers)
             ref = cpu_model(xs, t[:2].cpu()).numpy()
         log(f"  {name} {out.shape}, finite, {expect} launches: "
             f"{fmt_runs(runs)}, peak {peak:.2f} GiB; plain-SIREN forward "

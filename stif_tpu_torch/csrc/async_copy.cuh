@@ -19,13 +19,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(__cvta_generic_to_global(src))
-               : "memory");
-}
-
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_addr(dst)),
@@ -82,13 +75,21 @@ __device__ __forceinline__ void proxy_fence() {
 }
 
 // `bytes` (a multiple of 16) from 16-byte aligned `src` to 16-byte aligned
-// shared `dst`, completing against `bar`.
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
-                                          int bytes, uint64_t* bar) {
-  proxy_fence();
+// shared `dst`, completing against `bar`, with no fence: for a stage whose
+// earlier reads a barrier of the block has ordered before the copy.
+__device__ __forceinline__ void bulk_copy_unfenced(float* dst,
+                                                   const float* src,
+                                                   int bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(__cvta_generic_to_global(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// The same after this thread's ordinary accesses of shared memory.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          int bytes, uint64_t* bar) {
+  proxy_fence();
+  bulk_copy_unfenced(dst, src, bytes, bar);
 }

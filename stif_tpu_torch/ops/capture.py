@@ -12,8 +12,9 @@ in them:
   kernels' wrappers hand each launch to ``launched``. The ``Recording``
   keeps a reference to every such tensor (the graph reads it by address, so
   the store's least-recently-used bound must not free it), and tallies the
-  launches instead of adding them to the wrappers' counts: nothing runs at
-  a capture, and each replay adds the tally. The stage marks
+  launches (and a wrapper's further counters, such as the SIREN kernel's
+  tensor-core layers) instead of adding them to the wrappers' counts:
+  nothing runs at a capture, and each replay adds the tally. The stage marks
   (``utils/trace.py``) find there the table of the program being
   captured, which its replays add to.
 - the route: the switches that change which kernels a forward launches
@@ -36,7 +37,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import threading
-from typing import Callable, Dict, Hashable, Iterator, Optional
+from typing import Callable, Dict, Hashable, Iterator, Optional, Tuple
 
 import torch
 
@@ -50,13 +51,15 @@ _route_lock = threading.Lock()
 
 class Recording:
     """What one capture holds: the store tensors its forward read, the
-    launches of each kernel wrapper (keyed by the wrapper) it recorded, the
-    table its stage marks write (``utils/trace.py``; None: the eager one)
-    and the captured graph's node count (None where it is not read)."""
+    launches of each kernel wrapper (keyed by the wrapper) it recorded and
+    its further counters (keyed by wrapper and attribute name), the table
+    its stage marks write (``utils/trace.py``; None: the eager one) and the
+    captured graph's node count (None where it is not read)."""
 
     def __init__(self):
         self.tensors: Dict[int, torch.Tensor] = {}  # by id: each held once
         self.launches: Dict[Callable, int] = {}
+        self.counters: Dict[Tuple[Callable, str], int] = {}
         self.marks = None
         self.graph_nodes: Optional[int] = None
 
@@ -99,14 +102,26 @@ def hold(tensor: torch.Tensor) -> None:
         rec.tensors[id(tensor)] = tensor
 
 
-def launched(wrapper: Callable) -> None:
-    """Count one launch of ``wrapper``'s kernel: into the capture being
-    recorded, if any (the kernel did not run), else ``wrapper.launches``."""
+def launched(wrapper: Callable, **counters: int) -> None:
+    """Count one launch of ``wrapper``'s kernel, and ``counters`` (what the
+    launch ran, added to ``wrapper``'s attributes of those names): into the
+    capture being recorded, if any (the kernel did not run), else onto
+    ``wrapper.launches`` and those attributes."""
     rec = current()
     if rec is None:
         wrapper.launches += 1
+        add_counters(wrapper, counters)
     else:
         rec.launches[wrapper] = rec.launches.get(wrapper, 0) + 1
+        for name, n in counters.items():
+            key = (wrapper, name)
+            rec.counters[key] = rec.counters.get(key, 0) + n
+
+
+def add_counters(wrapper: Callable, counters: Dict[str, int]) -> None:
+    """Add ``counters`` to ``wrapper``'s attributes of those names."""
+    for name, n in counters.items():
+        setattr(wrapper, name, getattr(wrapper, name) + n)
 
 
 class Switched:

@@ -4,18 +4,21 @@
 computes: concatenate the input fields, ``h = sin(omega0 * (h W_i + b_i))``
 on every layer but the last, which is linear; fp32 throughout. On a CUDA
 tensor it launches the hand-written Hopper kernel ``csrc/siren_fused.cu``
-(the wide concatenated input and the hidden activations stay in shared
-memory) or raises; on a CPU tensor it computes the plain version,
-``siren_apply_fused_plain``. Nothing falls back from the kernel. The kernel
-has no backward: on a CUDA tensor it raises when grad mode is on and an
-operand requires grad, and on any device it raises on a DTensor operand (a
-tensor-parallel weight, whose raw pointer holds one shard).
+(the products on the tensor cores in 3xTF32, the wide concatenated input
+and the hidden activations never in device memory) or raises; on a CPU
+tensor it computes the plain version, ``siren_apply_fused_plain``. Nothing
+falls back from the kernel. The kernel has no backward: on a CUDA tensor it
+raises when grad mode is on and an operand requires grad, and on any device
+it raises on a DTensor operand (a tensor-parallel weight, whose raw pointer
+holds one shard).
 
 The launch geometry is worked out here, by ``launch_plan``: rows per tile,
-how each layer's weights are cut into K-chunks for the kernel's
-shared-memory ring, which columns of which field make up each chunk of the
-first layer's streamed input, and the bytes of shared memory. The C entry
-checks the plan again and refuses one it cannot run.
+each layer's tile width (its width rounded up to 8), how its weights are
+cut into K-chunks for the kernel's shared-memory ring, and the bytes of
+shared memory. The C entry checks the plan again and refuses one it cannot
+run. ``siren_apply_fused.launches`` counts the launches and
+``siren_apply_fused.tensor_core_layers`` the layers they ran on the tensor
+cores (``LaunchPlan.tensor_core_layers`` each).
 
 Fields may be views: any field whose leading dims are broadcast (stride 0,
 e.g. ``v.expand(nt, *v.shape)``) ahead of row-major rows with unit column
@@ -35,15 +38,16 @@ from stif_tpu_torch.ops import capture, cuda_build
 
 _MAX_FIELDS = 8
 _MAX_LAYERS = 8
-_MAX_WIDTH = 256  # widest layer output the kernel's thread mapping takes
+_MAX_WIDTH = 256  # widest layer: the widest tensor-core product
+_MAX_IN = 4096    # widest concatenated input row
 # the kernel's geometry (csrc/siren_fused.cu)
-_TILE_ROWS = 64         # query rows per block
-_THREADS = 256
-_LD = _TILE_ROWS + 4    # floats per feature in a shared tile
-_STAGE_FLOATS = 4096    # one stage of the two-stage weight ring
-_MAX_CHUNKS = 64        # first-layer chunks
-_MAX_KC0 = 64           # first-layer chunk: 8 columns for each of 8 warps
-_NARROW = 4             # widest last layer computed as a reduction over k
+_TILE_ROWS = 128        # query rows per block: 64 per multiplier warpgroup
+_THREADS = 512          # four warpgroups: two split, two multiply
+_GROUP = 128            # threads of a warpgroup
+_MULTIPLIERS = 2
+_STAGE_FLOATS = 2048    # one chunk of weights in the ring
+# mbarriers, the weight ring (2 stages), the operand stages (3, hi and lo)
+_ACT_OFFSET = 128 + (2 + 3 * 2) * 4 * _STAGE_FLOATS
 MAX_SMEM_BYTES = 232448  # dynamic shared memory one block may use on sm_90
 
 
@@ -67,34 +71,49 @@ def siren_apply_fused_plain(x, weights: Sequence[torch.Tensor],
     return h
 
 
+def _acc_floats(width: int) -> int:
+    """The kernel's accumulator floats a thread for a net whose widest tile
+    is ``width`` (one of its three compiled sizes)."""
+    return 32 if width <= 64 else 64 if width <= 128 else 128
+
+
+_KB_MAX = {32: 4, 64: 2, 128: 2}  # k-blocks of 8 rows a chunk, by size
+
+
+def chunk_rows(width: int, widest: int) -> int:
+    """Rows of a layer's weights per chunk of the kernel's ring at tile
+    width ``width`` in a net whose widest tile is ``widest``: a multiple of
+    8 with ``kc * width <= 2048`` floats, at most 8 k-blocks' worth of what
+    the net's accumulator size leaves registers for."""
+    return min(_STAGE_FLOATS // width // 8 * 8,
+               8 * _KB_MAX[_acc_floats(widest)])
+
+
 @dataclass(frozen=True)
 class LaunchPlan:
     """Launch geometry of the fused kernel for one net.
 
-    ``pitch[l]`` is the width of layer l's register tile (64 or 256), or 0
-    for a narrow last layer computed as a reduction over k; ``kc[l]`` the
-    rows of its weight matrix per ring stage (0 with pitch 0).
-    ``chunks[i]`` lists, in order, the ``(field, lo, hi)`` column ranges
-    that make up columns ``[i * kc[0], (i + 1) * kc[0])`` of the
-    concatenated input."""
+    ``pitch[l]`` is the width of layer l's tensor-core tile, the layer's
+    width rounded up to 8; ``kc[l]`` the rows of its weight matrix per
+    chunk of the ring. The first layer streams its input in chunks of
+    ``kc[0]`` columns of the concatenated row."""
 
     tile_rows: int
     threads: int
     pitch: Tuple[int, ...]
     kc: Tuple[int, ...]
-    chunks: Tuple[Tuple[Tuple[int, int, int], ...], ...]
     smem_bytes: int
+
+    @property
+    def tensor_core_layers(self) -> int:
+        """Layers whose products run on the tensor cores: every one."""
+        return len(self.pitch)
 
     def flat(self):
         """The plan as the C entry reads it (see ``siren_fused_forward``)."""
-        pieces = [(i, f, lo, hi) for i, chunk in enumerate(self.chunks)
-                  for f, lo, hi in chunk]
-        out = [self.tile_rows, self.threads, self.smem_bytes,
-               len(self.chunks), len(pieces)]
+        out = [self.tile_rows, self.threads, self.smem_bytes]
         for pitch, kc in zip(self.pitch, self.kc):
             out += [pitch, kc]
-        for piece in pieces:
-            out += piece
         return out
 
 
@@ -109,46 +128,25 @@ def launch_plan(splits: Sequence[int], dims: Sequence[int]) -> LaunchPlan:
     if not 2 <= len(dims) <= _MAX_LAYERS + 1 or sum(splits) != dims[0]:
         raise ValueError(f"siren_apply_fused: 1..{_MAX_LAYERS} layers after "
                          f"an input of width {sum(splits)}, got {dims}")
-    n_layers = len(dims) - 1
-    pitch, kc = [], []
-    for l, n in enumerate(dims[1:]):
+    if dims[0] > _MAX_IN:
+        raise ValueError(f"siren_apply_fused: input width {dims[0]} > "
+                         f"{_MAX_IN}")
+    pitch = []
+    for n in dims[1:]:
         if not 1 <= n <= _MAX_WIDTH:
             raise ValueError(f"siren_apply_fused: layer width {n} outside "
                              f"1..{_MAX_WIDTH}")
-        if 0 < l == n_layers - 1 and n <= _NARROW:
-            pitch.append(0)
-            kc.append(0)
-        else:
-            pitch.append(64 if n <= 64 else 256)
-            kc.append(min(_STAGE_FLOATS // pitch[-1], _MAX_KC0))
-    kc0 = kc[0]
-    if dims[0] > _MAX_CHUNKS * kc0:
-        raise ValueError(f"siren_apply_fused: input width {dims[0]} > "
-                         f"{_MAX_CHUNKS * kc0}")
-    # cut the concatenated row into chunks of kc0 columns, each a run of
-    # (field, lo, hi) pieces
-    chunks, cur, room = [], [], kc0
-    for f, width in enumerate(splits):
-        lo = 0
-        while lo < width:
-            hi = min(width, lo + room)
-            cur.append((f, lo, hi))
-            room -= hi - lo
-            lo = hi
-            if room == 0:
-                chunks.append(tuple(cur))
-                cur, room = [], kc0
-    if cur:
-        chunks.append(tuple(cur))
-    # one buffer holds the first layer's input ring and source-row table,
-    # then the widest hidden activation
-    buf = 2 * kc0 * _LD + 2 * _MAX_FIELDS * _TILE_ROWS
-    buf = max([buf] + [n * _LD for n in dims[1:-1]])
-    smem = 4 * (2 * _STAGE_FLOATS + buf) + 16  # and two mbarriers
+        pitch.append(-(-n // 8) * 8)
+    widest = max(pitch)
+    kc = [chunk_rows(p, widest) for p in pitch]
+    # activations: per multiplier thread one 16-byte slot for each 8
+    # columns of the widest layer, and at least one per field (the first
+    # layer's source-row offsets)
+    slots = max([len(splits)] + [p // 8 for p in pitch])
+    smem = _ACT_OFFSET + _MULTIPLIERS * slots * _GROUP * 16
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"siren_apply_fused: {smem} bytes of shared memory")
-    return LaunchPlan(_TILE_ROWS, _THREADS, tuple(pitch), tuple(kc),
-                      tuple(chunks), smem)
+    return LaunchPlan(_TILE_ROWS, _THREADS, tuple(pitch), tuple(kc), smem)
 
 
 def _field_layout(v: torch.Tensor, q: int) -> Tuple[int, int, int]:
@@ -192,8 +190,8 @@ def blocks_per_sm(plan: LaunchPlan) -> int:
     """Blocks of the kernel one SM holds under ``plan`` (the CUDA occupancy
     calculator's answer; builds the kernel if needed)."""
     fn = cuda_build.load("siren_fused").siren_fused_blocks_per_sm
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-    n = fn(plan.smem_bytes)
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    n = fn(plan.smem_bytes, max(plan.pitch))
     if n < 0:
         raise RuntimeError(f"siren_fused occupancy query: CUDA error {-n}")
     return n
@@ -285,8 +283,11 @@ def siren_apply_fused(x, weights: Sequence[torch.Tensor],
                  cdims, cplan, len(flat), out.data_ptr(), q, omega0, stream)
     if err != 0:
         raise RuntimeError(f"siren_fused kernel launch failed: CUDA error {err}")
-    capture.launched(siren_apply_fused)
+    capture.launched(siren_apply_fused,
+                     tensor_core_layers=plan.tensor_core_layers)
     return out.reshape(*lead, dims[-1])
 
 
 siren_apply_fused.launches = 0
+# layers run on the tensor cores, summed over the launches
+siren_apply_fused.tensor_core_layers = 0

@@ -173,6 +173,7 @@ class Program:
         self._replay = replay
         self.held = list(recording.tensors.values())
         self.launches = recording.launches
+        self.counters = recording.counters
         self.warmup_ms = warmup_ms
         self.capture_ms = capture_ms
         self.pool_bytes = pool_bytes
@@ -196,6 +197,8 @@ class Program:
         self.replays += 1
         for wrapper, n in self.launches.items():
             wrapper.launches += n
+        for (wrapper, name), n in self.counters.items():
+            capture_scope.add_counters(wrapper, {name: n})
         return self.output
 
     def stats(self) -> dict:

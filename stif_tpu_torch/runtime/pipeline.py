@@ -99,10 +99,12 @@ class InferencePipeline:
     """Renders LR frame windows on one device (CUDA unless ``device`` says
     otherwise). ``render_window``, ``stage`` / ``stream`` and
     ``render_sequence`` serve a ``LunaTokis``, which takes ``test=`` and
-    ``local_ensemble=``, and a model whose forward takes ``(x, times,
-    out_size)`` only, such as ``LunaTokisTrain`` (``LIIF_train``): the
-    pipeline reads the forward's parameters once, here, and asking such a
-    model for ``test_mode`` or ``local_ensemble`` raises ``ValueError``.
+    ``local_ensemble=`` (the attributes ``test_mode`` and
+    ``local_ensemble``, read at each window), and a model whose forward
+    takes ``(x, times, out_size)`` only, such as ``LunaTokisTrain``
+    (``LIIF_train``): asking such a model for ``test_mode`` or
+    ``local_ensemble`` raises ``ValueError``, at construction or at the
+    window.
     ``render_pairs`` serves a ``LunaTokis`` (its chunked decode passes) and
     ``render_window_tmnet`` a ``TMNet``; the other variants are called
     directly.
@@ -130,20 +132,12 @@ class InferencePipeline:
         # x8 geometric self-ensemble (EDSR dihedral average): not a
         # reference mode; an optional quality / compute trade
         self.self_ensemble = self_ensemble
-        # the decode modes the window's forward is called with (the local
-        # ensemble: four area-weighted shifted decode passes, a quality /
-        # compute trade); none for a forward that does not take them
-        modes = {"test": test_mode, "local_ensemble": local_ensemble}
+        # four area-weighted shifted decode passes: a quality / compute trade
+        self.local_ensemble = local_ensemble
+        # whether the window's forward takes the decode modes above
         takes = inspect.signature(self.model.forward).parameters
-        if all(k in takes for k in modes):
-            self._modes = modes
-        elif test_mode or local_ensemble:
-            raise ValueError(
-                f"{type(self.model).__name__}'s forward takes no test= or "
-                "local_ensemble=: build the pipeline without test_mode and "
-                "local_ensemble")
-        else:
-            self._modes = {}
+        self._takes_modes = "test" in takes and "local_ensemble" in takes
+        self._modes()
         # render_pairs' decoder, made anew only when the chunk size changes
         self._chunked = None
 
@@ -177,6 +171,19 @@ class InferencePipeline:
             return fn(*inputs, **static)
         return self.programs.run(name, fn, inputs, self.model, static,
                                  tally=tally)
+
+    def _modes(self) -> dict:
+        """The decode modes the window's forward is called with: none for
+        a forward that does not take them, which raises if one is set."""
+        if self._takes_modes:
+            return {"test": self.test_mode,
+                    "local_ensemble": self.local_ensemble}
+        if self.test_mode or self.local_ensemble:
+            raise ValueError(
+                f"{type(self.model).__name__}'s forward takes no test= or "
+                "local_ensemble=: build the pipeline without test_mode and "
+                "local_ensemble")
+        return {}
 
     def _device_scope(self):
         return (torch.cuda.device(self.device) if self.device.type == "cuda"
@@ -225,7 +232,7 @@ class InferencePipeline:
         with torch.inference_mode(), self._device_scope():
             out = self._run("window", self.model, (xt, t), tally,
                             out_size=(hp * self.scale, wp * self.scale),
-                            **self._modes)
+                            **self._modes())
             out = out[:, 0].clone()
             if not cuda:
                 return out, None, hw, tally

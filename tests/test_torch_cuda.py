@@ -4,6 +4,7 @@ where there is no GPU. Needs no JAX: on a GPU host without it, run
 ``python -m pytest tests/test_torch_cuda.py -q --noconftest``."""
 
 import contextlib
+import math
 
 import numpy as np
 import pytest
@@ -102,38 +103,114 @@ def test_kernel_matches_plain_decoder_layouts(cuda, rng, name, nt, Q):
 
 
 @pytest.mark.parametrize("case", ["hidden_16", "out_5", "first_layer_wide",
-                                  "single_layer", "k_exact_chunks"])
+                                  "single_layer", "k_exact_chunks",
+                                  "width_128", "width_27", "width_8",
+                                  "width_100", "ragged_chunks_27"])
 def test_kernel_matches_plain_odd_widths(cuda, rng, case):
-    """Widths off the 64 / 256 tiles run padded; a lone layer is tiled."""
+    """Each layer runs on a tile of its own width rounded up to 8 (widths
+    off the multiples of 8 padded); a lone layer is tiled. The launch adds
+    the plan's tensor-core layers to the count."""
+    from stif_tpu_torch.ops.siren_fused import launch_plan
+
     splits, widths = {
         "hidden_16": ([8], [16, 4]),
         "out_5": ([200, 1], [64, 5]),
         "first_layer_wide": ([20, 20], [256, 256, 64]),
         "single_layer": ([9], [3]),
         "k_exact_chunks": ([100, 28], [64, 256, 3]),
+        "width_128": ([33], [128, 128, 4]),
+        "width_27": ([5, 7], [27, 27, 3]),
+        "width_8": ([3], [8, 8, 8]),
+        "width_100": ([50, 51], [100, 100, 2]),
+        "ragged_chunks_27": ([9], [27, 27, 27, 27]),
     }[case]
     ws, bs = _net(rng, splits, widths, cuda)
     xs = [torch.tensor(rng.uniform(-1, 1, (1000, c)), dtype=torch.float32,
                        device=cuda) for c in splits]
+    layers = launch_plan(splits, [sum(splits)] + widths).tensor_core_layers
+    assert layers == len(widths)
+    before = siren_apply_fused.tensor_core_layers
     got = siren_apply_fused(xs, ws, bs)
     torch.cuda.synchronize()
+    assert siren_apply_fused.tensor_core_layers == before + layers
     want = siren_apply_fused_plain(xs, ws, bs)
     assert (got - want).abs().max().item() <= 1e-4
+
+
+def _window_fields(name, device):
+    """One net's fields at a x4 720p window's rows (8 times of 720 x 1280
+    queries), laid out as its model hands them over."""
+    nt, Q = 8, 720 * 1280
+    if name in NETS:
+        return _decoder_fields(name, nt, Q, device)
+    return _zoo_fields(name, nt, Q, device)
+
+
+@pytest.mark.parametrize("name", list(NETS) + ["train_feat", "train_flow",
+                                               "train_encode"])
+def test_kernel_precision_beats_one_pass_tf32(cuda, rng, name):
+    """The kernel's products are 3xTF32, not one TF32 pass: against a
+    float64 SIREN of the same fp32 weights and inputs at a 720p window's
+    rows, its largest error is at most a twentieth of the plain SIREN's in
+    TF32 (one pass reads near 1x; 3xTF32 about 1/100 or less). The ratio
+    to the plain fp32 SIREN's error is printed beside it."""
+    splits, widths = {**NETS, **ZOO_NETS}[name]
+    ws, bs = _net(rng, splits, widths, cuda)
+    torch.manual_seed(0)
+    xs = _window_fields(name, cuda)
+    got = siren_apply_fused(xs, ws, bs)
+    torch.cuda.synchronize()
+    w64 = [w.double() for w in ws]
+    b64 = [b.double() for b in bs]
+    err = {"kernel": 0.0, "fp32": 0.0, "tf32": 0.0}
+    for i in range(xs[0].shape[0]):  # one query time at a time
+        xi = [x[i] for x in xs]
+        ref = siren_apply_fused_plain([x.double() for x in xi], w64, b64)
+        err["kernel"] = max(err["kernel"],
+                            (got[i].double() - ref).abs().max().item())
+        fp32 = siren_apply_fused_plain(xi, ws, bs)
+        err["fp32"] = max(err["fp32"], (fp32.double() - ref).abs().max().item())
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = siren_apply_fused_plain(xi, ws, bs)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        err["tf32"] = max(err["tf32"], (tf32.double() - ref).abs().max().item())
+    print(f"{name}: max error vs float64 kernel {err['kernel']:.3e}, plain "
+          f"fp32 {err['fp32']:.3e}, TF32 {err['tf32']:.3e}; kernel / TF32 "
+          f"{err['kernel'] / err['tf32']:.4f}, kernel / fp32 "
+          f"{err['kernel'] / err['fp32']:.2f}")
+    assert err["kernel"] <= err["tf32"] / 20
 
 
 @pytest.mark.parametrize("scale", [1e2, 1e5, 1e8])
 def test_kernel_sine(cuda, scale):
     """The kernel's sine against a float64 sine of the same fp32 argument
     (bar 5e-7; ``sinf`` itself is good to 2 ulp): inside its fast range
-    (|x| <= 105615) and beyond, where it hands over to ``sinf``."""
+    (|x| <= 105615) and beyond, where it hands over to ``sinf``. The
+    argument is the kernel's own: its first layer's 3xTF32 product, read
+    from a one-layer launch of the same weight and inputs, times omega0.
+    That product is held to 3xTF32's bound, 2^-20 of the exact product
+    (one TF32 pass is off by up to 2^-11), and its error in fp32 ulps of
+    the fp32 product is printed. The identity last layer, itself a 3xTF32
+    product, passes the sine on to within 2^-22 + 2^-24 (3e-7)."""
     w0 = torch.full((1, 4), 1.0 / 30.0, device=cuda)
     ws = [w0, torch.eye(4, device=cuda)]
     bs = [torch.zeros(4, device=cuda)] * 2
     torch.manual_seed(0)
     x = (torch.rand(1 << 18, 1, device=cuda) * 2 - 1) * scale
     got = siren_apply_fused([x], ws, bs)
+    lin = siren_apply_fused([x], ws[:1], bs[:1])
     torch.cuda.synchronize()
-    arg = 30.0 * (x * w0)
+    exact = x.double() * w0.double()
+    rel = ((lin.double() - exact).abs() / exact.abs().clamp_min(1e-300)).max()
+    fp32 = x * w0
+    ulp = torch.nextafter(fp32.abs(), torch.tensor(math.inf, device=cuda))
+    ulps = ((lin - fp32).abs() / (ulp - fp32.abs())).max().item()
+    print(f"|x| <= {scale:.0e}: first-layer product vs exact {rel.item():.3e} "
+          f"relative, vs the fp32 product {ulps:.1f} ulp at most")
+    assert rel.item() <= 2.0 ** -20
+    arg = 30.0 * lin
     err = (got.double() - torch.sin(arg.double())).abs().max().item()
     assert err <= 5e-7
 
@@ -214,7 +291,7 @@ def _zoo_fields(name, nt, Q, device):
 @pytest.mark.parametrize("nt,Q", [(1, 1), (3, 63), (3, 65), (2, 4097),
                                   (8, 65536)])
 def test_kernel_matches_plain_zoo_nets(cuda, rng, name, nt, Q):
-    """A 128-wide last layer on the 256 tile, a 27-wide one on the 64 tile,
+    """A 128-wide last layer on a 128 tile, a 27-wide one on a 32 tile,
     652 input columns from four fields, six layers, 256 -> 256 twice."""
     splits, widths = ZOO_NETS[name]
     ws, bs = _net(rng, splits, widths, cuda)

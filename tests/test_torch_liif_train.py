@@ -132,6 +132,16 @@ def test_modes_it_lacks_are_refused_at_construction(model, mode):
         InferencePipeline(model, device="cpu", **{mode: True})
 
 
+@pytest.mark.parametrize("mode", ["test_mode", "local_ensemble"])
+def test_modes_it_lacks_are_refused_when_set_later(model, mode):
+    """A mode set on the pipeline after construction is read at the
+    window, and refused there."""
+    _, eager = _pipes(model)
+    setattr(eager, mode, True)
+    with pytest.raises(ValueError, match="test= or local_ensemble="):
+        eager.render_window(_clip(7, h=6, w=10)[0].numpy(), [0.25])
+
+
 def test_work_by_hand():
     """``roofline/liif_train.py`` at LR 2x3, x2 (out 4x6), two times, nf 4,
     groups 1, 1 + 1 blocks: every FLOP and byte counted by hand."""

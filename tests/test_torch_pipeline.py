@@ -55,6 +55,22 @@ def test_render_window_self_ensemble(pipes):
     np.testing.assert_allclose(got, want, atol=5e-5)
 
 
+@pytest.mark.parametrize("mode", ["test_mode", "local_ensemble"])
+def test_decode_mode_set_after_construction(pipes, mode):
+    """A decode mode set on a built pipeline is read at the next window:
+    it renders what a pipeline built with the mode renders."""
+    _, pp = pipes
+    frames = _frames(2, 12, 14, 3)
+    built = InferencePipeline(pp.model, device="cpu", **{mode: True})
+    setattr(pp, mode, True)
+    try:
+        got = pp.render_window(frames, TIMES)
+    finally:
+        setattr(pp, mode, False)
+    np.testing.assert_array_equal(got, built.render_window(frames, TIMES))
+    assert np.abs(got - pp.render_window(frames, TIMES)).max() > 0
+
+
 def test_render_sequence(pipes):
     jp, pp = pipes
     frames = _frames(3, 12, 14, 2)

@@ -4,10 +4,10 @@ The plain ``siren_apply_fused`` (what the port's wrapper runs on a CPU
 tensor) is held against the JAX Pallas kernel in interpret mode at the
 decoder's real field splits, at atol 2e-5 (the bar of
 ``tests/test_siren_pallas.py``); the ``Siren`` module against the flax one.
-The CUDA kernel's launch plan (``launch_plan``: tile, K-chunks, the first
-layer's chunk -> (field, column range) map, shared memory) is pure Python
-and is held here: its ragged edges, and that summing the first layer chunk
-by chunk in the plan's order stays within 1e-6 of the plain version.
+The CUDA kernel's launch plan (``launch_plan``: the tile, each layer's
+tensor-core tile width and K-chunks, shared memory) is pure Python and is
+held here: its ragged edges, and that summing the first layer chunk by
+chunk, as the kernel streams it, stays within 1e-6 of the plain version.
 """
 
 import numpy as np
@@ -26,6 +26,7 @@ from stif_tpu_torch.ops import siren_apply_fused, siren_apply_fused_plain
 from stif_tpu_torch.ops.siren_fused import (
     MAX_SMEM_BYTES,
     _field_layout,
+    chunk_rows,
     launch_plan,
 )
 from torch_parity import load_into_port, t
@@ -151,6 +152,11 @@ PLAN_CASES = {
     "out_5": ([200, 1], [201, 64, 5]),
     "first_layer_wide": ([20, 20], [40, 256, 256, 64]),
     "single_layer": ([9], [9, 3]),
+    "width_128": ([33], [33, 128, 128, 4]),
+    "width_27": ([5, 7], [12, 27, 27, 3]),
+    "width_8": ([3], [3, 8, 8, 8]),
+    "width_100": ([50, 51], [101, 100, 100, 2]),
+    "ragged_chunks_27": ([9], [9, 27, 27, 27, 27]),
 }
 
 
@@ -159,71 +165,61 @@ def test_launch_plan(case):
     splits, dims = PLAN_CASES[case]
     plan = launch_plan(splits, dims)
     n_layers = len(dims) - 1
-    assert plan.tile_rows == 64 and plan.threads == 256
+    assert plan.tile_rows == 128 and plan.threads == 512
     assert len(plan.pitch) == len(plan.kc) == n_layers
     for l, (pitch, kc) in enumerate(zip(plan.pitch, plan.kc)):
         n = dims[l + 1]
-        if pitch == 0:  # reduction over k: only a narrow last layer
-            assert l == n_layers - 1 and l > 0 and n <= 4 and kc == 0
-        else:
-            assert pitch in (64, 256) and n <= pitch
-            assert 1 <= kc and kc * pitch * 4 <= 16384  # one ring stage
-    kc0 = plan.kc[0]
-    assert kc0 <= 64
-    assert len(plan.chunks) == -(-dims[0] // kc0)
-    # the pieces walk every first-layer column exactly once, in order
-    cols = []
-    for i, chunk in enumerate(plan.chunks):
-        width = sum(hi - lo for _, lo, hi in chunk)
-        assert width == (kc0 if i < len(plan.chunks) - 1
-                         else dims[0] - kc0 * i)
-        for f, lo, hi in chunk:
-            assert 0 <= f < len(splits) and 0 <= lo < hi <= splits[f]
-            cols += [(f, c) for c in range(lo, hi)]
-    assert cols == [(f, c) for f, w in enumerate(splits) for c in range(w)]
+        # every layer, a narrow last one too: its width rounded up to the
+        # product's 8
+        assert pitch % 8 == 0 and n <= pitch < n + 8
+        assert kc == chunk_rows(pitch, max(plan.pitch))
+        assert kc % 8 == 0 and 8 <= kc <= 32
+        assert kc * pitch <= 2048  # one stage of the weight ring
+    assert plan.tensor_core_layers == n_layers
     assert plan.smem_bytes <= MAX_SMEM_BYTES
+    # each multiplier's activation slots: the widest layer, one per field
+    slots = max([len(splits)] + [p // 8 for p in plan.pitch])
+    assert plan.smem_bytes == 65664 + 2 * 2048 * slots
     flat = plan.flat()
-    n_pieces = sum(len(c) for c in plan.chunks)
-    assert len(flat) == 5 + 2 * n_layers + 4 * n_pieces
-    assert flat[:5] == [64, 256, plan.smem_bytes, len(plan.chunks), n_pieces]
+    assert len(flat) == 3 + 2 * n_layers
+    assert flat[:3] == [128, 512, plan.smem_bytes]
+    assert flat[3::2] == list(plan.pitch) and flat[4::2] == list(plan.kc)
 
 
 def test_launch_plan_decoder_nets_share_an_sm():
-    """At the decoder's nets two blocks fit in an SM's 227 KB (less 1 KB
-    that the system keeps per block)."""
+    """At the decoder's nets one block, two splitter and two multiplier
+    warpgroups sharing the weights' stages, fits in an SM's 227 KB (less
+    1 KB that the system keeps per block)."""
     for name in NETS:
         plan = launch_plan(*PLAN_CASES[name])
-        assert 2 * (plan.smem_bytes + 1024) <= 227 * 1024
+        assert plan.smem_bytes + 1024 <= 227 * 1024
 
 
 def test_launch_plan_zoo_nets():
-    """The six zoo nets: tile widths (a 128-wide last layer on the 256
-    tile, a 27-wide one on the 64 tile, 4 and 3 as reductions), K-chunks,
-    first-layer chunks (652 columns: 11, the last 12 wide, cut from four
-    fields) and the flagship's shared bytes, two blocks per SM."""
+    """The six zoo nets: tile widths (each layer's own: a 128-wide last
+    layer on a 128 tile, a 27-wide one on a 32 tile, 4 and 3 on an 8
+    tile), K-chunks (16 rows, 8 at 256 wide: every net has a 256-wide
+    layer), first-layer chunks (652 columns: 41, the last 12 wide) and the
+    flagship's shared bytes, one block per SM."""
     want = {
-        "train_feat": ((64, 64, 64, 256, 256), (64, 64, 64, 16, 16), 4),
-        "train_flow": ((64, 64, 64, 256, 0), (64, 64, 64, 16, 0), 6),
-        "train_encode": ((64, 64, 64, 256, 256, 64),
-                         (64, 64, 64, 16, 16, 64), 11),
-        "s_flow": ((64, 64, 256, 0), (64, 64, 16, 0), 4),
-        "s_encode": ((64, 64, 256, 256, 0), (64, 64, 16, 16, 0), 7),
-        "noflow_feat": ((64, 64, 256, 256, 256, 0),
-                        (64, 64, 16, 16, 16, 0), 4),
+        "train_feat": ((64, 64, 64, 256, 128), (16, 16, 16, 8, 16), 13),
+        "train_flow": ((64, 64, 64, 256, 8), (16, 16, 16, 8, 16), 21),
+        "train_encode": ((64, 64, 64, 256, 256, 32),
+                         (16, 16, 16, 8, 8, 16), 41),
+        "s_flow": ((64, 64, 256, 8), (16, 16, 8, 16), 13),
+        "s_encode": ((64, 64, 256, 256, 8), (16, 16, 8, 8, 16), 25),
+        "noflow_feat": ((64, 64, 256, 256, 256, 8),
+                        (16, 16, 8, 8, 8, 16), 13),
     }
     for name, (pitch, kc, n_chunks) in want.items():
-        plan = launch_plan(*PLAN_CASES[name])
-        assert (plan.pitch, plan.kc, len(plan.chunks)) == (pitch, kc,
-                                                           n_chunks), name
-        assert plan.smem_bytes == 102416
-        assert 2 * (plan.smem_bytes + 1024) <= 227 * 1024
-    last = launch_plan(*PLAN_CASES["train_encode"]).chunks[-1]
-    assert last == ((3, 186, 198),)
-    # chunk 1 of train_flow's input straddles two fields
-    assert launch_plan(*PLAN_CASES["train_flow"]).chunks[1] == (
-        (0, 64, 128),)
-    assert launch_plan(*PLAN_CASES["train_flow"]).chunks[5] == (
-        (1, 192, 200), (2, 0, 1))
+        splits, dims = PLAN_CASES[name]
+        plan = launch_plan(splits, dims)
+        assert (plan.pitch, plan.kc, -(-dims[0] // plan.kc[0])) == (
+            pitch, kc, n_chunks), name
+        assert plan.tensor_core_layers == len(pitch)
+        assert plan.smem_bytes == 196736
+        assert plan.smem_bytes + 1024 <= 227 * 1024
+    assert PLAN_CASES["train_encode"][1][0] - 40 * 16 == 12
 
 
 @pytest.mark.parametrize("splits,dims", [
@@ -232,20 +228,32 @@ def test_launch_plan_zoo_nets():
     ([8], [9, 16, 4]),           # fields do not add up to the input width
     ([1] * 9, [9, 16, 4]),       # more than 8 fields
     ([8, 0], [8, 16, 4]),        # an empty field
-    ([5000], [5000, 64, 4]),     # more first-layer chunks than the kernel takes
+    ([5000], [5000, 64, 4]),     # an input row wider than the kernel takes
 ])
 def test_launch_plan_rejects(splits, dims):
     with pytest.raises(ValueError):
         launch_plan(splits, dims)
 
 
+def _first_layer_chunk(xs, k0, kc):
+    """Columns [k0, k0 + kc) of the concatenated row, gathered field by
+    field as the kernel walks them (a column pair may straddle two)."""
+    starts = np.cumsum([0] + [x.shape[1] for x in xs])
+    cols = []
+    for c in range(k0, min(k0 + kc, starts[-1])):
+        f = int(np.searchsorted(starts, c, side="right")) - 1
+        cols.append(xs[f][:, c - starts[f]])
+    return torch.stack(cols, -1)
+
+
 def test_chunked_first_layer_matches_plain(rng):
-    """Summing the first layer chunk by chunk, each chunk gathered from its
-    (field, column range) pieces as the kernel gathers it, changes only the
-    summation order: within 1e-6 of the plain version at the three nets."""
+    """Summing the first layer chunk by chunk, kc[0] columns of the
+    concatenated row at a time, each gathered from its fields as the kernel
+    gathers it, changes only the summation order: within 1e-6 of the plain
+    version at the three nets."""
     for name in NETS:
         splits, dims = PLAN_CASES[name]
-        plan = launch_plan(splits, dims)
+        kc0 = launch_plan(splits, dims).kc[0]
         xs = [t(rng.uniform(-1, 1, (97, c)).astype(np.float32))
               for c in splits]
         ws, bs = [], []
@@ -256,8 +264,8 @@ def test_chunked_first_layer_matches_plain(rng):
                 np.float32)))
         h = torch.zeros(97, dims[1])
         k0 = 0
-        for chunk in plan.chunks:
-            x = torch.cat([xs[f][:, lo:hi] for f, lo, hi in chunk], -1)
+        while k0 < dims[0]:
+            x = _first_layer_chunk(xs, k0, kc0)
             h = h + x @ ws[0][k0:k0 + x.shape[1]]
             k0 += x.shape[1]
         assert k0 == dims[0]
