@@ -275,10 +275,11 @@ DCN_STEP_FORWARD = 78  # a train step: 42, and 36 recomputed by remat
 DCN_ALTERNATIONS = 5  # [4]: windows timed with the DCN kernels and plain
 # grid_sample launches of a full-grid decode with the bicubic skip: stages
 # A and B 1 each, stage C 2 at each warp grid, the skip 2; a chunk step of
-# the chunked decode: 5 in A+B, 8 in C+D; a train step: the decode, and
-# the same again where the backward recomputes it (remat)
+# the chunked decode runs the same stages over its rows, so the same 8 (2 in
+# A+B, 6 in C+D); a train step: the decode, and the same again where the
+# backward recomputes it (remat)
 GATHERS_PER_WINDOW = 8
-GATHERS_PER_CHUNK = 13
+GATHERS_PER_CHUNK = GATHERS_PER_WINDOW
 GATHERS_PER_STEP = 16
 GATHERS_ENSEMBLE = 36   # local ensemble: 4 passes of 9 (stage B re-samples)
 GATHERS_TEST_MODE = 11  # test mode: stages B and C gather from HR inputs
@@ -734,7 +735,8 @@ GATHER_LR = (192, 320)   # the x4 720p window's padded LR bucket
 GATHER_HR = (768, 1280)  # and its output grid
 GATHER_NT = 8
 GATHER_FLOW = 3.0        # LR pixels of the warp around each HR cell centre
-# the eight gathers of one x4 720p window (``LunaTokis._decode_pass``):
+# the eight gathers of one x4 720p window (``LunaTokis.decode_ab`` and
+# ``decode_cd``):
 # name -> (source channels, the channel slice read, source size, source
 # batch (1 is broadcast over the grid's batch), grid, mode). Grid "cells"
 # is one time's HR cell centres (1, Q, 2); "g1", "g2" the nt warped grids
@@ -1080,11 +1082,12 @@ def main_path(card: str):
 # ----------------------------------------------------------------- phase 5
 
 def chunk_fields(name, nt, B, Cq, device, pad_from=None):
-    """One net's fields as ``decode_chunk_ab`` / ``decode_chunk_cd`` hand
-    them over for nt times, a batch of B and Cq queries: separate contiguous
-    gathers, the time-independent ones broadcast over the time axis (row
-    period B * Cq). With ``pad_from``, queries from that index on repeat the
-    one before, as in a padded last chunk."""
+    """One net's fields as ``decode_ab`` / ``decode_cd`` hand them over for
+    a chunk of nt times, a batch of B and Cq queries: column slices of the
+    fused gathers (stage B's of (feat, input), stage C's at each grid), the
+    time-independent ones broadcast over the time axis (row period B * Cq).
+    With ``pad_from``, queries from that index on repeat the one before, as
+    in a padded last chunk."""
     import torch
 
     def r(*shape):
@@ -1099,9 +1102,12 @@ def chunk_fields(name, nt, B, Cq, device, pad_from=None):
     if name == "feat_imnet":
         return [tile_t(r(B, Cq, 200)), r(nt, B, Cq, 1)]
     if name == "flow_imnet":
-        return [r(nt, B, Cq, 64), tile_t(r(B, Cq, 192)), tile_t(r(B, Cq, 6)),
-                r(nt, B, Cq, 1)]
-    return [r(nt * B, Cq, c) for c in NETS[name][0]]
+        q_b = r(B, Cq, 198)
+        return [r(nt, B, Cq, 64), tile_t(q_b[..., :192]),
+                tile_t(q_b[..., 192:]), r(nt, B, Cq, 1)]
+    c1, c2 = r(nt * B, Cq, 198), r(nt * B, Cq, 198)
+    return [r(nt * B, Cq, 64), r(nt * B, Cq, 64), c1[..., :192],
+            c2[..., :192], c1[..., 192:], c2[..., 192:], r(nt * B, Cq, 1)]
 
 
 def slice_kernel_checks(device) -> float:
@@ -1308,7 +1314,7 @@ def slice_phase(card: str, device) -> int:
     log(f"  render_pairs, 2 pairs: {fmt_runs(runs)}, peak {peak:.2f} GiB "
         f"[{card}]")
     with sync_checked("render_pairs, B = 2", model,
-                      ("gen_feat", "decode_chunk_ab", "decode_chunk_cd")):
+                      ("gen_feat", "decode_ab", "decode_cd")):
         syncs = host_syncs(lambda: pipe.render_pairs(pairs, times))
     if syncs != 1:
         raise AssertionError(f"render_pairs: {syncs} host syncs, expected 1 "

@@ -36,7 +36,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from stif_tpu_torch.models.luna_tokis_variants import Queries, _Encoder, _prep
+from stif_tpu_torch.models.luna_tokis import Queries, decode_prep
+from stif_tpu_torch.models.luna_tokis_variants import _Encoder
 from stif_tpu_torch.models.registry import register_model
 from stif_tpu_torch.nn.blocks import Conv
 from stif_tpu_torch.nn.siren import Siren
@@ -92,10 +93,10 @@ class LunaTokisAblation(nn.Module):
     def gen_feat(self, x: torch.Tensor) -> torch.Tensor:
         return self.encoder(x)
 
-    def _decode_window(self, feat, inp_cat, times, HH: int, WW: int):
-        """One decode pass over a (HH, WW) query grid from a window field
-        ``feat`` (B, H, W, 3nf). Returns (nt, B, HH, WW, C_out)."""
-        q = Queries(feat, inp_cat, times, HH, WW)
+    def _decode_window(self, s, times, HH: int, WW: int):
+        """One decode pass over a (HH, WW) query grid from a window's
+        sources ``s`` (``decode_prep``). Returns (nt, B, HH, WW, C_out)."""
+        q = Queries(s, times, (HH, WW))
         nt, B, Q, nfc = q.nt, q.B, q.Q, q.nfc
         base = q.tile_t(q.base)  # [nearest feature, nearest input, rel]
 
@@ -116,18 +117,18 @@ class LunaTokisAblation(nn.Module):
             # cont: bilinear resamples, no rel. The bilinear regather of the
             # HR field at the clamped query coordinates differs from the
             # identity (by about 1e-5) at boundary cells: no shortcut here
-            q_b = grid_sample(torch.cat([feat, inp_cat], -1), q.cxy)
+            q_b = grid_sample(s.gather_bc, q.cxy)
             q_hr_b = grid_sample(
                 hrfeat, q.tile_t(q.cxy).reshape(nt * B, Q, 2)
             ).reshape(nt, B, Q, -1)
             flow_q = self.flow_imnet([q_hr_b, q.tile_t(q_b), q.pe])
-        g1, g2 = q.warp_grids(flow_q, HH, WW)
+        g1, g2 = q.warp_grids(flow_q)
         q_feat1 = grid_sample(hrfeat, g1)
         q_feat2 = grid_sample(hrfeat, g2)
         if self.stage_d == "two_hr":
             out = self.encode_imnet([q_feat1, q_feat2])
         else:  # six, train order: [q1, (q3, qi1), q2, (q4, qi2)]
-            lr_c = q.tile_b(torch.cat([feat, inp_cat], -1))
+            lr_c = q.tile_b(s.gather_bc)
             out = self.encode_imnet([q_feat1, grid_sample(lr_c, g1),
                                      q_feat2, grid_sample(lr_c, g2)])
         out = out.reshape(nt * B, HH, WW, self.encode_out)
@@ -139,8 +140,8 @@ class LunaTokisAblation(nn.Module):
 
     def decode(self, feat_t, inp, times, out_size=None) -> torch.Tensor:
         """One pair window: the first 3 temporal feature maps."""
-        feat, inp_cat, HH, WW = _prep(feat_t, inp, out_size)
-        return self._decode_window(feat, inp_cat, times, HH, WW)
+        s, (HH, WW) = decode_prep(feat_t, inp, out_size)
+        return self._decode_window(s, times, HH, WW)
 
     def decode_mulfeat(self, feat_t, inp,
                        window_times: Optional[Sequence[Sequence[float]]] = None,
@@ -156,10 +157,9 @@ class LunaTokisAblation(nn.Module):
             window_times = ([0.0, 0.5], [0.0, 0.5], [0.0, 0.5, 1.0])
         outs = []
         for fid in range(3):
-            feat, inp_cat, HH, WW = _prep(feat_t[:, 2 * fid:2 * fid + 3], inp,
-                                          out_size)
-            outs.append(self._decode_window(feat, inp_cat, window_times[fid],
-                                            HH, WW))
+            s, (HH, WW) = decode_prep(feat_t[:, 2 * fid:2 * fid + 3], inp,
+                                      out_size)
+            outs.append(self._decode_window(s, window_times[fid], HH, WW))
         return torch.cat(outs, 0)
 
     def forward(self, x, times, out_size=None,

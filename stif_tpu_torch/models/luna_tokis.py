@@ -9,23 +9,29 @@ package's: input (B, N, H, W, 3), features (B, 2N-1, H, W, nf), output
   encoder (``gen_feat``): conv_first -> front residual blocks -> L2/L3
     strided pyramid -> PCD alignment of the pair -> bidirectional
     deformable ConvLSTM -> recon trunk.
-  decoder (``decode``: the full (HH, WW) grid, or an explicit window):
+  decoder (``decode``): ``decode_prep`` builds a decode's gather sources
+    once (``Sources``); a ``Queries`` is one set of queries on the (HH, WW)
+    HR field: the whole grid, rows of it (a chunk), the local ensemble's
+    shifted set or a zoom window. ``decode_ab`` and ``decode_cd`` run the
+    stages over a query set, the one copy of them that every path calls:
     stage A: nearest-gather LR features + rel coords + time -> feat_imnet
     stage B: (HR feature, bilinear LR feature, input) -> flow_imnet
     stage C: two warp grids from the flow; bilinear gathers at both
     stage D: encode_imnet -> RGB, plus the rgb_skip blend.
-  The query-time axis rides in front of the batch axis: every stage runs
-  once for all (time, batch) pairs. The three SIREN nets run through the
-  fused kernel (``stif_tpu_torch.ops.siren_fused``) unless ``mlp_dtype``
-  or ``fused=False`` says otherwise.
-  ``decode_chunk_ab`` / ``decode_chunk_cd`` are the same stages per query
-  chunk, for frames too large to decode whole
-  (``stif_tpu_torch.runtime.chunked``).
+  The full-grid decode runs A+B and C+D over the whole grid; the chunked
+  decoder (``stif_tpu_torch.runtime.chunked``), for frames too large to
+  decode whole, runs A+B over every chunk of rows, assembles the HR field,
+  then C+D over every chunk. ``Sources`` and ``Queries`` serve the
+  variants and ablations too. The query-time axis rides in front of the
+  batch axis: every stage runs once for all (time, batch) pairs. The three
+  SIREN nets run through the fused kernel
+  (``stif_tpu_torch.ops.siren_fused``) unless ``mlp_dtype`` or
+  ``fused=False`` says otherwise.
 
 Stage marks (``utils/trace.py``, with grad disabled): ``encode`` with
 ``encode.front`` (the convs before the alignment), ``encode.pcd`` (each
 pair's alignment and fusion), ``encode.convlstm``, ``encode.trunk``;
-``decode`` with ``decode.prep`` (the decoder's inputs, the bicubic skip
+``decode`` with ``decode.prep`` (the gather sources, the bicubic skip
 source, the query grid), ``decode.ab`` (stages A and B) and ``decode.cd``
 (stages C and D), the latter two in the chunk passes too.
 
@@ -34,6 +40,9 @@ math on a TPU) and the mesh.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -48,7 +57,7 @@ from stif_tpu_torch.ops.coords import make_coord_cached, make_coord_demo
 from stif_tpu_torch.ops.grid_sample import grid_sample
 from stif_tpu_torch.ops.pixel_shuffle import pixel_shuffle
 from stif_tpu_torch.ops.resize import imresize_to, resize_bilinear
-from stif_tpu_torch.ops.warp import warp_grid
+from stif_tpu_torch.ops.warp import _base_grid, lattice_plus_flow
 from stif_tpu_torch.utils.trace import mark
 
 _EPS = 1e-6
@@ -61,6 +70,129 @@ def _times_nb(times, B: int, device) -> torch.Tensor:
     if t.dim() == 2:
         return t.t()
     return t.reshape(-1, 1).expand(t.numel(), B)
+
+
+class Sources(NamedTuple):
+    """A decode's gather sources, each (B, h, w, C), built once per decode
+    (stage ``decode.prep``) and read by every pass and chunk."""
+
+    feat: torch.Tensor     # the first 3 temporal maps, channel t*nf + c
+    inp_cat: torch.Tensor  # the input frames, channel n*3 + c
+    # stages B-D's input frames: inp_cat, or (test mode) its bilinear x4
+    # upsample (``align_corners=False``)
+    hr_inp: torch.Tensor
+    # [feat, inp_cat, LR cell centres]: stage A's one nearest gather
+    gather_a: torch.Tensor
+    # [feat, hr_inp] when hr_inp is at LR resolution: stages B and C's one
+    # bilinear gather per grid
+    gather_bc: Optional[torch.Tensor] = None
+
+
+def decode_prep(feat_t: torch.Tensor, inp: torch.Tensor, out_size=None,
+                hr_inp_upsample: bool = False):
+    """``(Sources, (HH, WW))`` of features (B, T, H, W, nf) and the model
+    input (B, N, H, W, 3): the sources, and the query grid's size (default
+    x4)."""
+    B, _, H, W, _ = feat_t.shape
+    feat = feat_t[:, :3].permute(0, 2, 3, 1, 4).reshape(B, H, W, -1)
+    inp_cat = inp.permute(0, 2, 3, 1, 4).reshape(B, H, W, -1)
+    hr_inp = (resize_bilinear(inp_cat, scale_factor=4, align_corners=False)
+              if hr_inp_upsample else inp_cat)
+    centres = make_coord_cached((H, W), flatten=False, device=feat.device)
+    gather_a = torch.cat([feat, inp_cat, centres[None].expand(B, H, W, 2)],
+                         -1)
+    gather_bc = (torch.cat([feat, hr_inp], -1)
+                 if hr_inp.shape[1:3] == feat.shape[1:3] else None)
+    size = (4 * H, 4 * W) if out_size is None else tuple(out_size)
+    return Sources(feat, inp_cat, hr_inp, gather_a, gather_bc), size
+
+
+class Queries:
+    """One set of Q queries on an (HH, WW) = ``size`` HR field, over the
+    sources ``s``, at query times (nt,) or (B, nt):
+
+    - ``coord`` (Q, 2) or (B, Q, 2): the clamped (y, x) gather coordinates,
+      default the whole grid's cell centres; the rows of a chunk, shifted
+      ones (the local ensemble, with ``ref``, the unshifted reference of
+      the relative coordinates) or a zoom window otherwise;
+    - ``lattice`` (Q, 2): the queries' rows of the field's
+      ``align_corners=True`` lattice (``ops/warp.py``), (x, y), from which
+      stage C's grids start; default the whole grid's, for a query set of
+      the whole grid;
+    - ``centres``: the queries are the field's own cell centres at their
+      rows (the grid or rows of it), where stage B's nearest re-sample of
+      the HR field is the identity and is skipped.
+
+    The constructor launches nothing but the default coordinates' clamp;
+    each tensor below is computed when a stage first reads it:
+
+    - ``cxy`` (B, Q, 2): the gather coordinates in (x, y) order;
+    - ``base`` (B, Q, 3nf + 3N + 2): the nearest LR feature, the nearest
+      input sample and the relative coordinates, in that column order (one
+      fused gather of ``Sources.gather_a``; the nets read column slices of
+      it in place); ``area`` (B, Q): the local ensemble's weight;
+    - ``pe`` (nt, B, Q, 1): the query times, contiguous;
+    - ``tile_t`` / ``tile_b``: a (B, ...) tensor broadcast over the times
+      as a (nt, B, ...) view, or as a (nt*B, ...) gather source;
+    - ``warp_grids``: stage C's two clamped grids of a flow.
+    """
+
+    def __init__(self, s: Sources, times, size, coord=None, lattice=None,
+                 ref=None, centres: bool = True):
+        dev = s.feat.device
+        if coord is None:
+            coord = make_coord_cached(size, device=dev).clamp(-1 + _EPS,
+                                                              1 - _EPS)
+        if lattice is None:
+            lattice = _base_grid(*size, dev).reshape(-1, 2)
+        self.s, self.size, self.centres = s, tuple(size), centres
+        self.coord, self.lattice = coord, lattice
+        self.ref = coord if ref is None else ref
+        self.nfc, self.nic = s.feat.shape[-1], s.inp_cat.shape[-1]
+        self.B, self.Q = s.feat.shape[0], coord.shape[-2]
+        self.t_nb = _times_nb(times, self.B, dev)
+        self.nt = self.t_nb.shape[0]
+
+    @functools.cached_property
+    def cxy(self) -> torch.Tensor:
+        return self.coord.expand(self.B, self.Q, 2).flip(-1)
+
+    @functools.cached_property
+    def base(self) -> torch.Tensor:
+        src = self.s.gather_a
+        H, W = src.shape[1:3]
+        k = src.shape[-1] - 2
+        q = grid_sample(src, self.cxy, mode="nearest")
+        rel = (self.ref - q[..., k:]) * vector(H, W, dtype=q.dtype,
+                                               device=q.device)
+        return torch.cat([q[..., :k], rel], -1)
+
+    @functools.cached_property
+    def area(self) -> torch.Tensor:
+        rel = self.base[..., -2:]
+        return (rel[..., 0] * rel[..., 1]).abs() + 1e-9
+
+    @functools.cached_property
+    def pe(self) -> torch.Tensor:
+        return self.t_nb[:, :, None, None].expand(
+            self.nt, self.B, self.Q, 1).contiguous()
+
+    def tile_t(self, v: torch.Tensor) -> torch.Tensor:
+        return v.expand(self.nt, *v.shape)
+
+    def tile_b(self, v: torch.Tensor) -> torch.Tensor:
+        return self.tile_t(v).reshape(self.nt * self.B, *v.shape[1:])
+
+    def warp_grids(self, flow: torch.Tensor):
+        """The two clamped stage-C sample grids (nt*B, Q, 2), (x, y), of a
+        flow (nt, B, Q, 4) or (nt*B, Q, 4): ``warp_grid``'s arithmetic at
+        the queries' rows of the lattice, normalised by the field's size."""
+        flow = flow.reshape(self.nt * self.B, self.Q, 4)
+        HH, WW = self.size
+        return tuple(
+            lattice_plus_flow(self.lattice, flow[..., k:k + 2], HH,
+                              WW).clamp(-1 + _EPS, 1 - _EPS)
+            for k in (0, 2))
 
 
 def add_encoder(m: nn.Module, nf: int, groups: int, front_RBs: int,
@@ -191,124 +323,70 @@ class LunaTokis(nn.Module):
         return grid_sample(v, g, mode="bilinear",
                            source_dtype=self.stagec_dtype or self.gather_dtype)
 
-    def _decode_prep(self, feat_t: torch.Tensor, inp: torch.Tensor,
-                     hr_inp_upsample: bool = False):
-        """The first 3 temporal feature maps, channel order t*nf + c, the
-        input frames, channel order n*3 + c, both (B, H, W, .), and the
-        decoder's input-frame source ``hr_inp``: the input frames, or their
-        bilinear x4 upsample (``align_corners=False``) in test mode."""
-        B, _, H, W, _ = feat_t.shape
-        feat = feat_t[:, :3].permute(0, 2, 3, 1, 4).reshape(B, H, W, -1)
-        N = inp.shape[1]
-        inp_cat = inp.permute(0, 2, 3, 1, 4).reshape(B, H, W, N * 3)
-        hr_inp = (resize_bilinear(inp_cat, scale_factor=4, align_corners=False)
-                  if hr_inp_upsample else inp_cat)
-        return feat, inp_cat, hr_inp
-
-    def _skip_source(self, inp_cat: torch.Tensor, out_size,
-                     full_grid: bool = True):
+    def skip_source(self, inp_cat: torch.Tensor, size):
         """(B, HH, WW, 6) MATLAB-bicubic upsample of the [first, last] input
-        frames when ``rgb_skip_bicubic`` applies (full-grid decodes only: an
-        explicit query window falls back to the LR skip), else None."""
-        if not (self.rgb_skip and self.rgb_skip_bicubic and full_grid):
+        frames to the query grid's ``size`` when ``rgb_skip_bicubic``
+        applies, else None. Full-grid decodes only: an explicit query
+        window falls back to the LR skip."""
+        if not (self.rgb_skip and self.rgb_skip_bicubic):
             return None
         src = torch.cat([inp_cat[..., :3], inp_cat[..., -3:]], -1)
-        return imresize_to(src, out_size)
+        return imresize_to(src, size)
 
-    def _rgb(self, fields, pe, q_img1, q_img2, skip_hr, g1, g2, tile_t):
-        """Stage D: ``encode_imnet`` on the gathered fields, all
-        (nt*B, Q, .), plus the time-blended skip term under ``rgb_skip``."""
-        rgb = self.encode_imnet(list(fields) + [q_img1, q_img2, pe])
-        if self.rgb_skip:
-            if skip_hr is not None:
-                s1 = self._gs_b(tile_t(skip_hr[..., :3]), g1)
-                s2 = self._gs_b(tile_t(skip_hr[..., 3:]), g2)
-            else:
-                s1, s2 = q_img1[..., :3], q_img2[..., -3:]
-            rgb = rgb + (1.0 - pe) * s1 + pe * s2
-        return rgb
-
-    def _decode_pass(self, feat, inp_cat, hr_inp, coord_q, coord_ref, times,
-                     HH: int, WW: int, identity_b: bool = False,
-                     skip_hr=None):
-        """One decode pass over a regular (HH, WW) query window.
-
-        ``coord_q``: (B, Q, 2) (y, x) gather coordinates, possibly shifted
-        (local ensemble) and clamped; ``coord_ref``: (B, Q, 2) unshifted
-        query coordinates, the reference of the relative coordinates;
-        ``identity_b``: the window is the full grid, where stage B's nearest
-        re-sample of the HR field at its own cell centres is the identity
-        and is skipped; ``skip_hr``: optional (B, HH, WW, 6) bicubic skip
-        source. Returns (rgb (nt, B, HH, WW, 3), area (B, Q)).
+    def decode_ab(self, q: Queries):
+        """Stages A and B over the query set ``q``: the HR feature field and
+        the flow at its queries, (nt*B, Q, 64) and (nt*B, Q, 4). A query set
+        that is not the field's own cell centres re-samples the field at its
+        coordinates, so it must be the whole grid.
 
         The SIREN nets get their fields as views (broadcasts over the time
         axis, column slices of a fused gather), never concatenated here.
         """
-        with mark("decode.ab", feat.device):
-            B, H, W = feat.shape[:3]
-            dev = feat.device
-            coord_xy = coord_q.flip(-1)  # grid_sample wants (x, y)
-            feat_coord = make_coord_cached((H, W), flatten=False, device=dev)
-            feat_coord = feat_coord[None].expand(B, H, W, 2)
-
-            # stage A gathers: every LR field sampled at the same grid, at once
-            nfc, nic = feat.shape[-1], inp_cat.shape[-1]
-            q_a = grid_sample(torch.cat([feat, inp_cat, feat_coord], -1),
-                              coord_xy, mode="nearest")
-            q_coord = q_a[..., nfc + nic:]
-            rel = (coord_ref - q_coord) * vector(H, W, dtype=coord_ref.dtype,
-                                                 device=dev)
-            area = (rel[..., 0] * rel[..., 1]).abs() + 1e-9
-            # (B, Q, 3nf+8)
-            base_a = torch.cat([q_a[..., :nfc + nic], rel], -1)
-
-            # stage B gathers of the time-independent fields, one fused gather
-            # when hr_inp is at LR resolution (the non-test path)
-            same_res = hr_inp.shape[1:3] == feat.shape[1:3]
-            if same_res:
-                q_b = self._gs_b(torch.cat([feat, hr_inp], -1), coord_xy)
+        s = q.s
+        with mark("decode.ab", s.feat.device):
+            nt, B, Q, nfc = q.nt, q.B, q.Q, q.nfc
+            base = q.tile_t(q.base)
+            # stage B gathers of the time-independent fields, one fused
+            # gather when hr_inp is at LR resolution (the non-test path)
+            if s.gather_bc is not None:
+                q_b = self._gs_b(s.gather_bc, q.cxy)
                 q_feat0_b, q_inp_b = q_b[..., :nfc], q_b[..., nfc:]
             else:
-                q_inp_b = self._gs_b(hr_inp, coord_xy)
-                q_feat0_b = self._gs_b(feat, coord_xy)
-
-            t_nb = _times_nb(times, B, dev)
-            nt = t_nb.shape[0]
-            Q = HH * WW
-
-            def tile_t(v):  # (B, ...) -> (nt, B, ...), a broadcast view
-                return v.expand(nt, *v.shape)
-
-            def tile_b(v):  # (B, h, w, C) -> (nt*B, h, w, C), a gather source
-                return tile_t(v).reshape(nt * B, *v.shape[1:])
-
-            pe = t_nb[:, :, None, None].expand(nt, B, Q, 1).contiguous()
-
+                q_inp_b = self._gs_b(s.hr_inp, q.cxy)
+                q_feat0_b = self._gs_b(s.feat, q.cxy)
             # stage A: HR feature field (nt, B, Q, 64)
-            hrfeat_q = self.feat_imnet([tile_t(base_a), pe])
-            hrfeat = hrfeat_q.reshape(nt * B, HH, WW, -1)
+            hrfeat_q = self.feat_imnet([base, q.pe])
+            # the field's view is made before stage B reads hrfeat_q: the
+            # backward then sums hrfeat_q's two gradients in one fixed order
+            field = hrfeat_q.reshape(nt * B, Q, -1)
             # stage B: flow
-            if identity_b:
+            if q.centres:
                 q_feat_b = hrfeat_q
             else:
                 q_feat_b = grid_sample(
-                    hrfeat, tile_t(coord_xy).reshape(nt * B, Q, 2),
+                    field.reshape(nt * B, *q.size, -1),
+                    q.tile_t(q.cxy).reshape(nt * B, Q, 2),
                     mode="nearest").reshape(nt, B, Q, -1)
-            flow_q = self.flow_imnet([q_feat_b, tile_t(q_feat0_b),
-                                      tile_t(q_inp_b), pe])
-            flow = flow_q.reshape(nt * B, HH, WW, 4)
-        with mark("decode.cd", feat.device):
+            flow_q = self.flow_imnet([q_feat_b, q.tile_t(q_feat0_b),
+                                      q.tile_t(q_inp_b), q.pe])
+        return field, flow_q.reshape(nt * B, Q, 4)
+
+    def decode_cd(self, q: Queries, field: torch.Tensor, flow: torch.Tensor,
+                  skip_hr=None) -> torch.Tensor:
+        """Stages C and D over the query set ``q``: RGB (nt*B, Q, 3) from
+        the queries' ``flow`` (nt*B, Q, 4), gathering from the whole HR
+        feature ``field`` (nt*B, HH, WW, 64) and the optional bicubic skip
+        source ``skip_hr`` (B, HH, WW, 6)."""
+        s = q.s
+        with mark("decode.cd", s.feat.device):
+            nt, B, Q, nfc = q.nt, q.B, q.Q, q.nfc
             # stage C: warp grids, then the gathers at both
-            g1 = warp_grid(flow[..., :2]).clamp(-1 + _EPS, 1 - _EPS)
-            g2 = warp_grid(flow[..., 2:]).clamp(-1 + _EPS, 1 - _EPS)
-            g1 = g1.reshape(nt * B, Q, 2)
-            g2 = g2.reshape(nt * B, Q, 2)
-            pe = pe.reshape(nt * B, Q, 1)
+            g1, g2 = q.warp_grids(flow)
+            pe = q.pe.reshape(nt * B, Q, 1)
             # the wide LR gathers come first, while the HR gathers' results do
             # not exist yet: a gather holds its result twice for a moment
-            if same_res and not self.stagec_nearest:
+            if s.gather_bc is not None and not self.stagec_nearest:
                 # equal-resolution LR sources fuse into one gather per grid
-                lr_cat = torch.cat([feat, hr_inp], -1)
                 if self.stagec_dedup:
                     # the source does not depend on time: fold nt into the
                     # query axis and gather once from the (B, ...) map
@@ -320,19 +398,19 @@ class LunaTokis(nn.Module):
                         return (c.reshape(B, nt, Q, -1).transpose(0, 1)
                                 .reshape(nt * B, Q, -1))
 
-                    c1 = unfold_q(self._gs_b(lr_cat, fold_q(g1)))
-                    c2 = unfold_q(self._gs_b(lr_cat, fold_q(g2)))
+                    c1 = unfold_q(self._gs_b(s.gather_bc, fold_q(g1)))
+                    c2 = unfold_q(self._gs_b(s.gather_bc, fold_q(g2)))
                 else:
-                    lr_c = tile_b(lr_cat)
+                    lr_c = q.tile_b(s.gather_bc)
                     c1 = self._gs_b(lr_c, g1)
                     c2 = self._gs_b(lr_c, g2)
                 q_feat3, q_img1 = c1[..., :nfc], c1[..., nfc:]
                 q_feat4, q_img2 = c2[..., :nfc], c2[..., nfc:]
             else:
-                feat_tl, hr_inp_tl = tile_b(feat), tile_b(hr_inp)
+                feat_tl, hr_inp_tl = q.tile_b(s.feat), q.tile_b(s.hr_inp)
                 q_img1 = self._gs_b(hr_inp_tl, g1)
                 q_img2 = self._gs_b(hr_inp_tl, g2)
-                if same_res:
+                if s.gather_bc is not None:
                     # stagec_nearest: the wide feature component by a nearest
                     # gather (no dedup fold, no source dtype); the 6-channel
                     # inputs stay bilinear
@@ -343,11 +421,31 @@ class LunaTokis(nn.Module):
                     # do not apply
                     q_feat3 = self._gs_b(feat_tl, g1)
                     q_feat4 = self._gs_b(feat_tl, g2)
-            q_feat1 = self._gs_b(hrfeat, g1)
-            q_feat2 = self._gs_b(hrfeat, g2)
-            rgb = self._rgb([q_feat1, q_feat2, q_feat3, q_feat4], pe, q_img1,
-                            q_img2, skip_hr, g1, g2, tile_b)
-        return rgb.reshape(nt, B, HH, WW, 3), area
+            q_feat1 = self._gs_b(field, g1)
+            q_feat2 = self._gs_b(field, g2)
+            # stage D, plus the time-blended skip term under rgb_skip
+            rgb = self.encode_imnet([q_feat1, q_feat2, q_feat3, q_feat4,
+                                     q_img1, q_img2, pe])
+            if self.rgb_skip:
+                if skip_hr is not None:
+                    s1 = self._gs_b(q.tile_b(skip_hr[..., :3]), g1)
+                    s2 = self._gs_b(q.tile_b(skip_hr[..., 3:]), g2)
+                else:
+                    s1, s2 = q_img1[..., :3], q_img2[..., -3:]
+                rgb = rgb + (1.0 - pe) * s1 + pe * s2
+        return rgb
+
+    def _decode_pass(self, s: Sources, times, size, coord, ref=None,
+                     centres: bool = True, skip_hr=None):
+        """One decode pass of the whole (HH, WW) = ``size`` field at the
+        gather coordinates ``coord`` (Q, 2): stages A and B, then C and D
+        gathering from the pass's own HR field. Returns (rgb (nt, B, HH,
+        WW, 3), area (B, Q))."""
+        q = Queries(s, times, size, coord, ref=ref, centres=centres)
+        field, flow = self.decode_ab(q)
+        rgb = self.decode_cd(q, field.reshape(q.nt * q.B, *q.size, -1), flow,
+                             skip_hr)
+        return rgb.reshape(q.nt, q.B, *q.size, 3), q.area
 
     def decode(self, feat_t: torch.Tensor, inp: torch.Tensor, times,
                out_size=None, hr_inp_upsample: bool = False,
@@ -364,28 +462,23 @@ class LunaTokis(nn.Module):
         """
         with mark("decode", feat_t.device):
             with mark("decode.prep", feat_t.device):
-                feat, inp_cat, hr_inp = self._decode_prep(feat_t, inp,
-                                                          hr_inp_upsample)
-                B, H, W = feat.shape[:3]
+                s, size = decode_prep(feat_t, inp, out_size, hr_inp_upsample)
+                B, H, W = s.feat.shape[:3]
                 if coords is None:
-                    HH, WW = (out_size if out_size is not None
-                              else (4 * H, 4 * W))
-                    coord = make_coord_cached((HH, WW), device=feat.device)
+                    coord = make_coord_cached(size, device=feat_t.device)
                     coord = coord.clamp(-1 + _EPS, 1 - _EPS)
+                    skip_hr = self.skip_source(s.inp_cat, size)
                 else:
-                    HH, WW = out_size
                     coord = torch.as_tensor(coords, dtype=torch.float32,
-                                            device=feat.device)
-                coord = coord[None].expand(B, HH * WW, 2)
-                skip_hr = self._skip_source(inp_cat, (HH, WW), coords is None)
+                                            device=feat_t.device)
+                    skip_hr = None
 
             if not local_ensemble:
                 # with grad on, the pass is recomputed in the backward instead
                 # of storing its gathered fields and SIREN activations (the JAX
                 # package's ``nn.remat(pass_fn)``); the same maths either way
-                rgb, _ = remat(self._decode_pass, feat, inp_cat, hr_inp, coord,
-                               coord, times, HH, WW, identity_b=coords is None,
-                               skip_hr=skip_hr)
+                rgb, _ = remat(self._decode_pass, s, times, size, coord,
+                               centres=coords is None, skip_hr=skip_hr)
                 return rgb
 
             rx = 2.0 / H / 2.0
@@ -395,102 +488,19 @@ class LunaTokis(nn.Module):
                 for vy in (-1, 1):
                     shift = vector(vx * rx + _EPS, vy * ry + _EPS,
                                    dtype=coord.dtype, device=coord.device)
-                    coord_s = (coord + shift).clamp(-1 + _EPS, 1 - _EPS)
                     rgb, area = self._decode_pass(
-                        feat, inp_cat, hr_inp, coord_s, coord, times, HH, WW,
-                        skip_hr=skip_hr)
+                        s, times, size, (coord + shift).clamp(-1 + _EPS,
+                                                              1 - _EPS),
+                        ref=coord, centres=False, skip_hr=skip_hr)
                     preds.append(rgb)
                     areas.append(area)
+            HH, WW = size
             tot = areas[0] + areas[1] + areas[2] + areas[3]
             out = 0.0
             # each pass is weighted by the area of the diagonally opposite one
             for p, a in zip(preds, areas[::-1]):
                 out = out + p * (a / tot).reshape(1, B, HH, WW, 1)
             return out
-
-    # ------------------------------------------------- chunked decode stages
-    #
-    # Memory-bounded full-grid decoding for large frames: stages A+B run per
-    # query chunk (self-contained: on the full grid stage B needs no
-    # re-sample of the HR field), the full HR feature field is assembled
-    # once, then stages C+D run per chunk, gathering from the full field.
-    # Driven by ``stif_tpu_torch.runtime.chunked.ChunkedDecoder``.
-
-    def decode_chunk_ab(self, feat, inp_cat, hr_inp, coord_chunk, times):
-        """Stages A+B for one query chunk of the full grid.
-
-        feat (B, H, W, 3nf), inp_cat (B, H, W, N*3), hr_inp, coord_chunk
-        (B, Cq, 2) (y, x) -> (hrfeat (nt*B, Cq, 64), flow (nt*B, Cq, 4))."""
-        with mark("decode.ab", feat.device):
-            B, H, W = feat.shape[:3]
-            dev = feat.device
-            cxy = coord_chunk.flip(-1)
-            feat_coord = make_coord_cached((H, W), flatten=False, device=dev)
-            feat_coord = feat_coord[None].expand(B, H, W, 2)
-            q_feat_a = grid_sample(feat, cxy, mode="nearest")
-            q_inp_a = grid_sample(inp_cat, cxy, mode="nearest")
-            q_coord = grid_sample(feat_coord, cxy, mode="nearest")
-            rel = (coord_chunk - q_coord) * vector(
-                H, W, dtype=coord_chunk.dtype, device=dev)
-            base_a = torch.cat([q_feat_a, q_inp_a, rel], -1)
-            # these two gathers take gather_dtype only, as in the JAX package
-            q_inp_b = grid_sample(hr_inp, cxy, source_dtype=self.gather_dtype)
-            q_feat0_b = grid_sample(feat, cxy, source_dtype=self.gather_dtype)
-
-            t_nb = _times_nb(times, B, dev)
-            nt = t_nb.shape[0]
-            Cq = coord_chunk.shape[1]
-
-            def tile_t(v):
-                return v.expand(nt, *v.shape)
-
-            pe = t_nb[:, :, None, None].expand(nt, B, Cq, 1).contiguous()
-            hrfeat = self.feat_imnet([tile_t(base_a), pe])
-            flow = self.flow_imnet([hrfeat, tile_t(q_feat0_b), tile_t(q_inp_b),
-                                    pe])
-            return hrfeat.reshape(nt * B, Cq, -1), flow.reshape(nt * B, Cq, -1)
-
-    def decode_chunk_cd(self, hrfeat_full, feat, hr_inp, flow_chunk,
-                        base_grid_chunk, times, out_size, skip_hr=None):
-        """Stages C+D for one query chunk, gathering from the full HR field.
-
-        hrfeat_full (nt*B, HH, WW, 64); flow_chunk (nt*B, Cq, 4);
-        base_grid_chunk (Cq, 2): the ``align_corners=True`` lattice values
-        (x, y) of this chunk's pixels on the full (HH, WW) canvas; skip_hr:
-        optional (B, HH, WW, 6) bicubic skip source. Returns (nt*B, Cq, 3)."""
-        with mark("decode.cd", feat.device):
-            HH, WW = out_size
-            B = feat.shape[0]
-            ntB, Cq = flow_chunk.shape[:2]
-            nt = ntB // B
-
-            def tile_b(v):  # (B, h, w, C) -> (nt*B, h, w, C)
-                return v.expand(nt, *v.shape).reshape(ntB, *v.shape[1:])
-
-            norm = vector((WW - 1.0) / 2.0, (HH - 1.0) / 2.0,
-                          dtype=flow_chunk.dtype, device=flow_chunk.device)
-            g1 = base_grid_chunk[None] + flow_chunk[..., 0:2] / norm
-            g2 = base_grid_chunk[None] + flow_chunk[..., 2:4] / norm
-            g1 = g1.clamp(-1 + _EPS, 1 - _EPS)
-            g2 = g2.clamp(-1 + _EPS, 1 - _EPS)
-            feat_tl, hr_inp_tl = tile_b(feat), tile_b(hr_inp)
-            q_img1 = self._gs_b(hr_inp_tl, g1)
-            q_img2 = self._gs_b(hr_inp_tl, g2)
-            if self.stagec_nearest and hr_inp.shape[1:3] == feat.shape[1:3]:
-                # the same approximation, under the same condition, as the
-                # full-grid pass
-                q_feat3 = grid_sample(feat_tl, g1, mode="nearest")
-                q_feat4 = grid_sample(feat_tl, g2, mode="nearest")
-            else:
-                q_feat3 = self._gs_b(feat_tl, g1)
-                q_feat4 = self._gs_b(feat_tl, g2)
-            q_feat1 = self._gs_b(hrfeat_full, g1)
-            q_feat2 = self._gs_b(hrfeat_full, g2)
-            t_nb = _times_nb(times, B, feat.device)
-            pe = (t_nb[:, :, None, None].expand(nt, B, Cq, 1).contiguous()
-                  .reshape(ntB, Cq, 1))
-            return self._rgb([q_feat1, q_feat2, q_feat3, q_feat4], pe, q_img1,
-                             q_img2, skip_hr, g1, g2, tile_b)
 
     def decode_zoom(self, feat_t, inp, times, out_size, window, center,
                     hr_inp_upsample: bool = False) -> torch.Tensor:

@@ -33,20 +33,15 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from stif_tpu_torch.models.luna_tokis import _times_nb, add_encoder, encode
+from stif_tpu_torch.models.luna_tokis import (Queries, add_encoder,
+                                             decode_prep, encode)
 from stif_tpu_torch.models.registry import register_model
 from stif_tpu_torch.nn.blocks import Conv, lrelu
 from stif_tpu_torch.nn.siren import Siren
-from stif_tpu_torch.ops.constants import vector
-from stif_tpu_torch.ops.coords import make_coord_cached
 from stif_tpu_torch.ops.fold import fold3x3
 from stif_tpu_torch.ops.grid_sample import grid_sample
 from stif_tpu_torch.ops.pixel_shuffle import pixel_shuffle
-from stif_tpu_torch.ops.resize import resize_bilinear
-from stif_tpu_torch.ops.warp import warp_grid
 from stif_tpu_torch.utils.trace import mark
-
-_EPS = 1e-6
 
 
 class _Encoder(nn.Module):
@@ -59,69 +54,6 @@ class _Encoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return encode(self, x)
-
-
-class Queries:
-    """What every variant's decoder starts from, for one regular (HH, WW)
-    query grid over features ``feat`` (B, H, W, 3nf) and input frames
-    ``inp_cat`` (B, H, W, 3N):
-
-    - ``cxy`` (B, Q, 2): the clamped query coordinates, (x, y) order;
-    - ``base`` (B, Q, 3nf + 3N + 2): the nearest LR feature, the nearest
-      input sample and the relative coordinates, in that column order (one
-      fused gather; the nets read column slices of it in place);
-    - ``pe`` (nt, B, Q, 1): the query times, contiguous;
-    - ``tile_t`` / ``tile_b``: a (B, ...) tensor broadcast over the times as
-      a (nt, B, ...) view, or as a (nt*B, ...) gather source.
-    """
-
-    def __init__(self, feat: torch.Tensor, inp_cat: torch.Tensor, times,
-                 HH: int, WW: int):
-        B, H, W, nfc = feat.shape
-        dev = feat.device
-        self.nfc, self.nic = nfc, inp_cat.shape[-1]
-        self.Q = HH * WW
-        coord = make_coord_cached((HH, WW), device=dev).clamp(-1 + _EPS,
-                                                              1 - _EPS)
-        coord = coord[None].expand(B, self.Q, 2)
-        self.cxy = coord.flip(-1)
-        feat_coord = make_coord_cached((H, W), flatten=False, device=dev)
-        feat_coord = feat_coord[None].expand(B, H, W, 2)
-        q = grid_sample(torch.cat([feat, inp_cat, feat_coord], -1), self.cxy,
-                        mode="nearest")
-        rel = (coord - q[..., nfc + self.nic:]) * vector(
-            H, W, dtype=coord.dtype, device=dev)
-        self.base = torch.cat([q[..., :nfc + self.nic], rel], -1)
-        t_nb = _times_nb(times, B, dev)
-        self.nt, self.B = t_nb.shape[0], B
-        self.pe = t_nb[:, :, None, None].expand(
-            self.nt, B, self.Q, 1).contiguous()
-
-    def tile_t(self, v: torch.Tensor) -> torch.Tensor:
-        return v.expand(self.nt, *v.shape)
-
-    def tile_b(self, v: torch.Tensor) -> torch.Tensor:
-        return self.tile_t(v).reshape(self.nt * self.B, *v.shape[1:])
-
-    def warp_grids(self, flow_q: torch.Tensor, HH: int, WW: int):
-        """The two clamped stage-C sample grids (nt*B, Q, 2) of a flow
-        (nt, B, Q, 4)."""
-        flow = flow_q.reshape(self.nt * self.B, HH, WW, 4)
-        return tuple(
-            warp_grid(f).clamp(-1 + _EPS, 1 - _EPS).reshape(
-                self.nt * self.B, self.Q, 2)
-            for f in (flow[..., :2], flow[..., 2:]))
-
-
-def _prep(feat_t: torch.Tensor, inp: torch.Tensor, out_size):
-    """The first 3 temporal feature maps (B, H, W, 3nf), channel order
-    t*nf + c, the input frames (B, H, W, 3N), channel order n*3 + c, and
-    the query grid's size (default x4)."""
-    B, _, H, W, _ = feat_t.shape
-    feat = feat_t[:, :3].permute(0, 2, 3, 1, 4).reshape(B, H, W, -1)
-    inp_cat = inp.permute(0, 2, 3, 1, 4).reshape(B, H, W, -1)
-    HH, WW = out_size if out_size is not None else (4 * H, 4 * W)
-    return feat, inp_cat, HH, WW
 
 
 @register_model("LunaTokisZSM")
@@ -170,9 +102,9 @@ class LunaTokisTrain(nn.Module):
         dev = feat_t.device
         with mark("decode", dev):
             with mark("decode.prep", dev):
-                feat, inp_cat, HH, WW = _prep(feat_t, inp, out_size)
+                s, (HH, WW) = decode_prep(feat_t, inp, out_size)
             with mark("decode.ab", dev):
-                q = Queries(feat, inp_cat, times, HH, WW)
+                q = Queries(s, times, (HH, WW))
                 nt, B, Q = q.nt, q.B, q.Q
                 base = q.tile_t(q.base)
                 # stage A (no time code)
@@ -186,10 +118,10 @@ class LunaTokisTrain(nn.Module):
                 flow_q = self.flow_imnet([q_feat_b, base, q.pe])
                 del q_feat_b
             with mark("decode.cd", dev):
-                g1, g2 = q.warp_grids(flow_q, HH, WW)
+                g1, g2 = q.warp_grids(flow_q)
                 # stage C: the equal-resolution LR sources in one gather per
                 # grid
-                lr_c = q.tile_b(torch.cat([feat, inp_cat], -1))
+                lr_c = q.tile_b(s.gather_bc)
                 c1 = grid_sample(lr_c, g1)
                 c2 = grid_sample(lr_c, g2)
                 q_feat1 = grid_sample(hrfeat, g1)
@@ -224,12 +156,12 @@ class LunaTokisS(nn.Module):
                                   fused=fused)
 
     def forward(self, x, times, out_size=None) -> torch.Tensor:
-        feat, inp_cat, HH, WW = _prep(self.encoder(x), x, out_size)
-        q = Queries(feat, inp_cat, times, HH, WW)
+        s, (HH, WW) = decode_prep(self.encoder(x), x, out_size,
+                                  hr_inp_upsample=True)
+        q = Queries(s, times, (HH, WW))
         flow_q = self.flow_imnet([q.tile_t(q.base), q.pe])
-        g1, g2 = q.warp_grids(flow_q, HH, WW)
-        hr_inp = resize_bilinear(inp_cat, scale_factor=4, align_corners=False)
-        feat_tl, hr_tl = q.tile_b(feat), q.tile_b(hr_inp)
+        g1, g2 = q.warp_grids(flow_q)
+        feat_tl, hr_tl = q.tile_b(s.feat), q.tile_b(s.hr_inp)
         q_feat3 = grid_sample(feat_tl, g1)
         q_feat4 = grid_sample(feat_tl, g2)
         q_img1 = grid_sample(hr_tl, g1)
@@ -251,7 +183,7 @@ class LunaTokisNoFlow(nn.Module):
                                 [64, 64, 256, 256, 256], 4, 3, fused=fused)
 
     def forward(self, x, times, out_size=None) -> torch.Tensor:
-        feat, inp_cat, HH, WW = _prep(self.encoder(x), x, out_size)
-        q = Queries(feat, inp_cat, times, HH, WW)
+        s, (HH, WW) = decode_prep(self.encoder(x), x, out_size)
+        q = Queries(s, times, (HH, WW))
         rgb = self.feat_imnet([q.tile_t(q.base), q.pe])
         return rgb.reshape(q.nt, q.B, HH, WW, 3)

@@ -39,9 +39,18 @@ def warp_grid(flow: torch.Tensor) -> torch.Tensor:
     normalised by the flow's *own* dims ((W-1)/2, (H-1)/2). Returns
     (B, H, W, 2) in (x, y) order."""
     _, H, W, _ = flow.shape
-    fn = torch.stack([flow[..., 0] / ((W - 1.0) / 2.0),
-                      flow[..., 1] / ((H - 1.0) / 2.0)], dim=-1)
-    return _base_grid(H, W, flow.device)[None] + fn
+    return lattice_plus_flow(_base_grid(H, W, flow.device)[None], flow, H, W)
+
+
+def lattice_plus_flow(lattice: torch.Tensor, flow: torch.Tensor, h: int,
+                      w: int) -> torch.Tensor:
+    """``warp_grid``'s arithmetic at any rows of an (h, w) field's lattice:
+    ``lattice`` (..., 2), values of ``_base_grid``, plus ``flow`` (..., 2)
+    (x, y) pixel displacements over the field's own ((w-1)/2, (h-1)/2),
+    divided as Python scalars (on CUDA, a multiply by the reciprocal)."""
+    fn = torch.stack([flow[..., 0] / ((w - 1.0) / 2.0),
+                      flow[..., 1] / ((h - 1.0) / 2.0)], dim=-1)
+    return lattice + fn
 
 
 def backward_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:

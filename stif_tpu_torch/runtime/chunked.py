@@ -4,20 +4,22 @@ A full-grid decode holds every gathered field and SIREN output of the whole
 (nt, HH, WW) query set at once; a production frame does not fit. The
 chunked decoder cuts the query axis, which every stage treats row by row:
 
-  prep              : ``_decode_prep``'s features and input frames
-  pass 1 (per chunk): stages A+B -> HR feature chunk + flow chunk, copied
-                      into the full HR feature field and the flow field
+  prep              : the decode's gather sources (``decode_prep``), once
+  pass 1 (per chunk): stages A+B (``decode_ab``) -> HR feature chunk + flow
+                      chunk, copied into the full HR feature field and the
+                      flow field
   skip              : the bicubic skip source, once
-  pass 2 (per chunk): stages C+D gathering from the full field -> RGB chunk,
-                      copied into the RGB field
+  pass 2 (per chunk): stages C+D (``decode_cd``) gathering from the full
+                      field -> RGB chunk, copied into the RGB field
 
 and the RGB field comes down to the host once, at the end: one blocking
 call per decode. (The JAX package's ``np.asarray`` per chunk bounds host
 memory, not the result; the (nt*B, Qp, 3) field is 1/21 of the HR field.)
-Queries are padded to a chunk multiple with the last coordinate and cropped
-after, so every chunk has one shape. The result equals the unchunked
-decode: the chunk boundaries cut only independent queries. The query grid
-and the base lattice come from the per-bucket store (``ops/constants.py``).
+A chunk's query set (``models/luna_tokis.py:Queries``) is rows of the whole
+grid's: its coordinates and its lattice rows. The rows are padded to a chunk
+multiple with the last row and cropped after, so every chunk has one shape.
+The passes are the full-grid decode's own stages, so the result equals the
+unchunked decode: the chunk boundaries cut only independent queries.
 Peak memory is the full HR feature field plus one chunk's intermediates.
 
 ``compiled``, as ``InferencePipeline`` takes it: on a CUDA device each of
@@ -26,8 +28,8 @@ the four passes (prep, A+B, skip, C+D) is a program of the decoder's own
 a CUDA graph and replayed for every chunk, as the JAX decoder jits each
 pass once and reuses it. Each pass's outputs are copied, on the compute
 stream before the next replay, into buffers the decoder owns; the chunk
-passes read those buffers (the features, the input frames, the HR field,
-the skip source) as resident inputs, by address. The decoder keeps the
+passes read those buffers (the gather sources, the HR field, the skip
+source) as resident inputs, by address. The decoder keeps the
 buffers and programs of its newest bucket (the shapes of a decode) between
 calls, so that a later decode of that bucket only replays; a new bucket
 lets the old one's go. Its own cache gives it a pool of its own: no replay
@@ -54,21 +56,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from stif_tpu_torch.ops.constants import constant
-from stif_tpu_torch.ops.coords import make_coord_cached
+from stif_tpu_torch.models.luna_tokis import Queries, Sources, decode_prep
 from stif_tpu_torch.parallel.mesh import Mesh
 from stif_tpu_torch.runtime.compiled import ProgramCache, program_cache
 from stif_tpu_torch.runtime.pipeline import resolve_device
-
-_EPS = 1e-6
-
-
-def _base_grid_xy(HH: int, WW: int) -> np.ndarray:
-    """(HH*WW, 2) ``align_corners=True`` lattice values in (x, y) order."""
-    gx = np.linspace(-1.0, 1.0, WW, dtype=np.float32)
-    gy = np.linspace(-1.0, 1.0, HH, dtype=np.float32)
-    g = np.stack(np.meshgrid(gx, gy, indexing="xy"), axis=-1)
-    return g.reshape(-1, 2)
 
 
 def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -78,17 +69,24 @@ def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([x, x[-1:].expand(n - x.shape[0], x.shape[1])], 0)
 
 
-# the chunk passes with their copied inputs first and their resident ones
-# after, as ``ProgramCache.run`` calls them
+# the passes with their copied inputs first and their resident ones after,
+# as ``ProgramCache.run`` calls them; the sources travel as the tensors of a
+# ``Sources`` (the last, ``gather_bc``, is absent in test mode)
 
-def _ab(model, coord, times, feat, inp_cat, hr_inp):
-    return model.decode_chunk_ab(feat, inp_cat, hr_inp, coord, times)
+def _prep(feat_t, inp, *, hr_inp_upsample):
+    s, _ = decode_prep(feat_t, inp, hr_inp_upsample=hr_inp_upsample)
+    return tuple(v for v in s if v is not None)
 
 
-def _cd(model, base_grid, flow, times, field, feat, hr_inp, skip=None, *,
-        out_size):
-    return model.decode_chunk_cd(field, feat, hr_inp, flow, base_grid, times,
-                                 out_size, skip_hr=skip)
+def _ab(model, coord, lattice, times, *sources, size):
+    return model.decode_ab(Queries(Sources(*sources), times, size, coord,
+                                   lattice))
+
+
+def _cd(model, coord, lattice, flow, times, field, *rest, size, skip):
+    skip_hr, sources = (rest[0], rest[1:]) if skip else (None, rest)
+    return model.decode_cd(Queries(Sources(*sources), times, size, coord,
+                                   lattice), field, flow, skip_hr)
 
 
 def _into(buffers: dict, name: str, value: torch.Tensor) -> torch.Tensor:
@@ -199,31 +197,34 @@ class ChunkedDecoder:
             bufs = self._buffers_of((tuple(feat_t.shape), tuple(inp.shape),
                                      tuple(t.shape), (HH, WW),
                                      hr_inp_upsample))
-            prep = self._call("prep", m._decode_prep, m, (feat_t, inp),
+            prep = self._call("prep", _prep, m, (feat_t, inp),
                               hr_inp_upsample=hr_inp_upsample)
-            feat, inp_cat, hr_inp = (_into(bufs, k, v) for k, v in zip(
-                ("feat", "inp_cat", "hr_inp"), prep))
-            B = feat.shape[0]
+            srcs = tuple(_into(bufs, k, v)
+                         for k, v in zip(Sources._fields, prep))
+            s = Sources(*srcs)
+            B = s.feat.shape[0]
             ntB = t.shape[-1] * B
-            coord = make_coord_cached((HH, WW), device=dev0).clamp(
-                -1 + _EPS, 1 - _EPS)
-            coord = _pad_rows(coord, Qp)
-            base_grid = _pad_rows(
-                constant(_base_grid_xy, HH, WW, device=dev0), Qp)
-            # per device: its replica and the prepared inputs
-            parts = [(self._replicas[str(d)], feat.to(d), inp_cat.to(d),
-                      hr_inp.to(d), coord.to(d), base_grid.to(d), t.to(d))
+            # the whole grid's query set, whose rows the chunks take
+            grid = Queries(s, t, (HH, WW))
+            coord = _pad_rows(grid.coord, Qp)
+            lattice = _pad_rows(grid.lattice, Qp)
+            # per device: its replica, the sources, the rows and the times
+            parts = [(self._replicas[str(d)], tuple(v.to(d) for v in srcs),
+                      coord.to(d), lattice.to(d), t.to(d))
                      for d in self.devices]
+
+            def rows(co, la, lo):  # one chunk's coordinates and lattice rows
+                return co[None, lo:lo + C].expand(B, C, 2), la[lo:lo + C]
 
             # pass 1: stages A+B; the HR and flow fields are assembled on
             # device 0
             for i in range(n_steps):
                 step = []
-                for j, (r, f, ic, hi, co, _, tj) in enumerate(parts):
-                    lo = i * S + j * C
-                    cc = co[None, lo:lo + C].expand(B, C, 2)
-                    step.append(self._call("ab", functools.partial(_ab, r),
-                                           r, (cc, tj), (f, ic, hi)))
+                for j, (r, sj, co, la, tj) in enumerate(parts):
+                    step.append(self._call(
+                        "ab", functools.partial(_ab, r), r,
+                        rows(co, la, i * S + j * C) + (tj,), sj,
+                        size=(HH, WW)))
                 for j, (hrf, flw) in enumerate(step):
                     lo = i * S + j * C
                     _rows_into(bufs, "field", hrf, lo, Qp, dev0)
@@ -235,8 +236,7 @@ class ChunkedDecoder:
             if (getattr(m, "rgb_skip", False)
                     and getattr(m, "rgb_skip_bicubic", False)):
                 skip_hr = _into(bufs, "skip", self._call(
-                    "skip", m._skip_source, m, (inp_cat,),
-                    out_size=(HH, WW)))
+                    "skip", m.skip_source, m, (s.inp_cat,), size=(HH, WW)))
             fields = [(field.to(d),
                        () if skip_hr is None else (skip_hr.to(d),))
                       for d in self.devices]
@@ -244,14 +244,14 @@ class ChunkedDecoder:
             # pass 2: stages C+D from the full field, replicated
             for i in range(n_steps):
                 step = []
-                for j, (r, f, _, hi, _, bg, tj) in enumerate(parts):
+                for j, (r, sj, co, la, tj) in enumerate(parts):
                     lo = i * S + j * C
                     hrf, sk = fields[j]
-                    flw = bufs["flow"][:, lo:lo + C].to(bg.device)
+                    flw = bufs["flow"][:, lo:lo + C].to(co.device)
                     step.append(self._call(
                         "cd", functools.partial(_cd, r), r,
-                        (bg[lo:lo + C], flw, tj), (hrf, f, hi) + sk,
-                        out_size=(HH, WW)))
+                        rows(co, la, lo) + (flw, tj), (hrf,) + sk + sj,
+                        size=(HH, WW), skip=bool(sk)))
                 for j, rgb in enumerate(step):
                     _rows_into(bufs, "rgb", rgb, i * S + j * C, Qp, dev0)
             # the decode's one wait: cropped on the device, and a copy even

@@ -1,8 +1,10 @@
 """Port ``ChunkedDecoder`` and ``render_pairs`` on the CPU at a small config
 (nf=16, groups=4, 2/2 residual blocks, LR 8x12, output 32x48 = 1536
 queries). Bars: chunked against the port's full decode and against the JAX
-package's ``ChunkedDecoder`` 2e-5 (both get the same features);
-``render_pairs`` against ``render_window`` of each pair 3e-5."""
+package's ``ChunkedDecoder`` 2e-5 (both get the same features), and
+bitwise the full decode at one chunk of the whole grid; a chunk's stage-C
+grids bitwise the matching rows of the full pass's; ``render_pairs``
+against ``render_window`` of each pair 3e-5."""
 
 import inspect
 
@@ -15,11 +17,10 @@ import jax.numpy as jnp
 
 from stif_tpu.models import LunaTokis as JLunaTokis
 from stif_tpu.runtime.chunked import ChunkedDecoder as JChunkedDecoder
-from stif_tpu.runtime.chunked import _base_grid_xy as j_base_grid_xy
 
 from stif_tpu_torch.models import LunaTokis
+from stif_tpu_torch.models.luna_tokis import Queries, decode_prep
 from stif_tpu_torch.runtime import ChunkedDecoder, InferencePipeline
-from stif_tpu_torch.runtime.chunked import _base_grid_xy
 from torch_parity import load_into_port, random_params, t
 
 CFG = dict(nf=16, nframes=6, groups=4, front_RBs=2, back_RBs=2)
@@ -46,13 +47,38 @@ def _port(params, **kw):
     return load_into_port(LunaTokis(**CFG, **kw), params)
 
 
-def test_base_grid_xy():
-    np.testing.assert_array_equal(_base_grid_xy(5, 7), j_base_grid_xy(5, 7))
+@pytest.mark.parametrize("chunk", [512, 500])
+def test_chunk_grids_are_rows_of_the_full_grids(setup, chunk):
+    """A chunk's query set takes its rows of the whole grid's coordinates
+    and lattice, as the chunked decoder cuts them: its stage-C grids of the
+    chunk's rows of a flow equal those rows of the full pass's grids
+    bitwise, at a chunk that divides Q = 1536 and one that does not (the
+    last chunk padded with the last row)."""
+    _, x, feat = setup
+    s, size = decode_prep(t(feat[:2]), t(x[:2]), OUT)
+    full = Queries(s, t(TIMES), size)
+    Q = full.Q
+    flow = torch.randn(len(TIMES) * 2, Q, 4,
+                       generator=torch.Generator().manual_seed(3)) * 4
+    g_full = full.warp_grids(flow)
+    steps = -(-Q // chunk)
+    pad = steps * chunk - Q
+    coord = torch.cat([full.coord, full.coord[-1:].expand(pad, 2)])
+    lattice = torch.cat([full.lattice, full.lattice[-1:].expand(pad, 2)])
+    flow_p = torch.cat([flow, flow[:, -1:].expand(-1, pad, 4)], 1)
+    for lo in range(0, Q, chunk):
+        rows = slice(lo, lo + chunk)
+        part = Queries(s, t(TIMES), size, coord[None, rows].expand(2, -1, -1),
+                       lattice[rows])
+        assert part.Q == chunk
+        n = min(chunk, Q - lo)
+        for got, want in zip(part.warp_grids(flow_p[:, rows]), g_full):
+            assert torch.equal(got[:, :n], want[:, lo:lo + n])
 
 
 # chunk sizes: one that divides Q = 1536, one that does not (padded last
-# chunk), one larger than Q
-@pytest.mark.parametrize("chunk", [512, 500, 4096])
+# chunk), exactly Q and one larger (one chunk: bitwise the full decode)
+@pytest.mark.parametrize("chunk", [512, 500, 1536, 4096])
 @pytest.mark.parametrize("case", ["bicubic_skip", "no_skip", "test_mode",
                                   "stagec_nearest", "batch_of_two"])
 def test_chunked_matches_full_decode(setup, case, chunk):
@@ -70,6 +96,8 @@ def test_chunked_matches_full_decode(setup, case, chunk):
     assert isinstance(got, np.ndarray)
     assert got.shape == want.shape == (len(TIMES), B) + OUT + (3,)
     np.testing.assert_allclose(got, want, atol=ATOL)
+    if chunk >= OUT[0] * OUT[1]:  # one chunk of the whole grid
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("case", ["bicubic_skip", "test_mode",

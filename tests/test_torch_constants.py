@@ -222,9 +222,9 @@ def test_make_coord_owned_and_cached():
                                     (1 / 96 + 1e-6, -1 / 160 + 1e-6),
                                     ((640 - 1.0) / 2.0, (384 - 1.0) / 2.0)])
 def test_vector_is_torch_tensor_bitwise(cold, values):
-    """The small vectors (``rel``'s scale, the local ensemble's shift,
-    ``decode_chunk_cd``'s norm) equal ``torch.tensor`` of the same numbers
-    bit for bit."""
+    """The small vectors (``rel``'s scale, the local ensemble's shift, a
+    field's half sizes) equal ``torch.tensor`` of the same numbers bit for
+    bit."""
     want = torch.tensor(list(values), dtype=torch.float32)
     assert torch.equal(vector(*values), want)
     assert vector(*values).dtype == torch.float32

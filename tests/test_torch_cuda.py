@@ -895,7 +895,7 @@ def test_model_call_makes_no_host_sync_once_warm(small_model, mode):
     if mode == "render_pairs":
         pairs = np.stack([frames, frames[::-1]])
         warm = pipe.render_pairs(pairs, times, chunk_size=100)
-        for name in ("gen_feat", "decode_chunk_ab", "decode_chunk_cd"):
+        for name in ("gen_feat", "decode_ab", "decode_cd"):
             setattr(model, name, _checked(getattr(model, name)))
         got = pipe.render_pairs(pairs, times, chunk_size=100)
     else:
